@@ -1,0 +1,173 @@
+"""Multi-head attention with GQA/MQA, sliding windows, and logit softcaps.
+
+Two compute paths, numerically interchangeable:
+
+* ``dense``  — naive O(S^2) scores; the oracle;
+* kernel     — :mod:`repro_torch.kernels.flash_attention` for self-attention
+               over a fresh sequence (train/prefill).  On CPU tensors it
+               runs its plain PyTorch version, on CUDA tensors the kernel.
+
+Decode (:func:`decode_attend`) is plain PyTorch, as in the JAX package.
+
+Layout convention: activations ``(B, S, D)``, heads ``(B, S, H, hd)``,
+KV cache ``(B, S_max, KV, hd)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers.init_utils import dense_init
+from repro_torch.models.layers.rope import apply_rope
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Static attention hyperparameters for one layer."""
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    causal: bool = True
+    window: int = 0            # 0 = full attention
+    softcap: float = 0.0
+    rope_theta: float = 10_000.0
+    use_rope: bool = True      # encoders use learned/absolute positions
+    query_scale: float = 0.0   # 0 → 1/sqrt(head_dim)
+
+    @property
+    def scale(self) -> float:
+        return self.query_scale or self.head_dim ** -0.5
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+def attention_init(generator: torch.Generator, d_model: int, spec: AttnSpec,
+                   device: torch.device | str = "cuda") -> dict:
+    hd = spec.head_dim
+    return {
+        "wq": dense_init(generator, (d_model, spec.n_heads, hd),
+                         fan_in=d_model, device=device),
+        "wk": dense_init(generator, (d_model, spec.n_kv_heads, hd),
+                         fan_in=d_model, device=device),
+        "wv": dense_init(generator, (d_model, spec.n_kv_heads, hd),
+                         fan_in=d_model, device=device),
+        "wo": dense_init(generator, (spec.n_heads, hd, d_model),
+                         fan_in=spec.n_heads * hd, device=device),
+    }
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+def _expand_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """(B, S, KV, hd) → (B, S, KV*q_per_kv, hd) by repetition."""
+    if q_per_kv == 1:
+        return x
+    b, s, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, q_per_kv, hd).reshape(
+        b, s, kv * q_per_kv, hd)
+
+
+def _group_q(q: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """(B, S, H, hd) → (B, S, KV, G, hd): GQA-grouped query layout so the
+    KV tensors are never materially expanded."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, h // q_per_kv, q_per_kv, hd)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    spec: AttnSpec,
+                    q_positions: torch.Tensor,
+                    kv_positions: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, H, hd);  k, v: (B, Sk, KV, hd);  positions: (B, S*)."""
+    b, sq, h, hd = q.shape
+    qg = _group_q(q, spec.q_per_kv)
+    logits = torch.einsum("bqcgd,bkcd->bcgqk", qg.float(),
+                          k.float()) * spec.scale
+    logits = _softcap(logits, spec.softcap)
+    qp = q_positions[:, None, None, :, None]
+    kp = kv_positions[:, None, None, None, :]
+    mask = kp >= 0
+    if spec.causal:
+        mask = mask & (kp <= qp)
+    if spec.window > 0:
+        mask = mask & (qp - kp < spec.window)
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bcgqk,bkcd->bqcgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, hd)
+
+
+def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, cache_positions: torch.Tensor,
+                  q_positions: torch.Tensor, spec: AttnSpec,
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial attention for one query token over a (shard of a) cache.
+
+    Returns ``(weighted_values, lse_max, lse_sum)`` so shards can be merged
+    with the log-sum-exp trick:
+    ``merge = Σ_s exp(m_s - m*) * wv_s / Σ_s exp(m_s - m*) * l_s``.
+
+    q: (B, 1, H, hd);  cache: (B, S, KV, hd);  cache_positions: (B, S).
+    """
+    b, sq, h, hd = q.shape
+    qg = _group_q(q, spec.q_per_kv).float()
+    logits = torch.einsum("bqcgd,bkcd->bcgqk", qg,
+                          cache_k.float()) * spec.scale
+    logits = _softcap(logits, spec.softcap)
+    qp = q_positions[:, None, None, None, None]
+    kp = cache_positions[:, None, None, None, :]
+    mask = (kp >= 0) & (kp <= qp)
+    if spec.window > 0:
+        mask = mask & (qp - kp < spec.window)
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    m = logits.amax(dim=-1)                      # (B, KV, G, 1)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(dim=-1)
+    wv = torch.einsum("bcgqk,bkcd->bcgqd", p, cache_v.float())
+    return (wv.reshape(b, h, sq, hd), m.reshape(b, h, sq),
+            l.reshape(b, h, sq))
+
+
+def merge_decode_partials(wv: torch.Tensor, m: torch.Tensor,
+                          l: torch.Tensor) -> torch.Tensor:
+    """Normalise one shard's decode partials (the single-shard merge)."""
+    del m   # one shard: its max is the global max
+    out = wv / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2)   # (B, 1, H, hd)
+
+
+def attention_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
+                    positions: torch.Tensor, return_kv: bool = False):
+    """Self-attention over ``x`` (B, S, D) through the flash attention
+    kernel, which assumes contiguous 0..S-1 positions (train/prefill).
+    ``return_kv`` also returns the fresh (k, v) for cache fills.  (The JAX
+    package's ``kv_override`` cross-cache mode has no caller here yet.)
+    """
+    dtype = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    if spec.use_rope:
+        q = apply_rope(q, positions, spec.rope_theta)
+        k = apply_rope(k, positions, spec.rope_theta)
+    # kernel layout (B, H, S, D): transposed views, read through strides
+    out = flash_ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=spec.causal, window=spec.window,
+        softcap=spec.softcap).transpose(1, 2)
+    y = torch.einsum("bshk,hkd->bsd", out.to(dtype), params["wo"].to(dtype))
+    if return_kv:
+        return y, (k, v)
+    return y

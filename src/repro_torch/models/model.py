@@ -1,0 +1,296 @@
+"""The model's spine: config-driven decoder stacks (dense stages).
+
+An architecture compiles to a list of :class:`StageSpec`s — homogeneous
+groups of blocks whose parameters are stacked on a leading layer
+dimension, exactly as in ``repro.models.model``: ``stages[0]["attn"]["wq"]``
+is ``(L, d, H, hd)``.  The JAX package scans over that dimension; here a
+Python loop indexes it.
+
+Public API (plain functions over a params dict, plus :class:`DecoderLM`,
+the ``nn.Module`` that holds the parameters):
+
+* :func:`init_params`
+* :func:`init_cache`
+* :func:`prefill`       — build KV caches, return last logits
+* :func:`decode_step`   — one-token serving step (updates caches in place)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, AttnKind
+from repro_torch.models import blocks as B
+from repro_torch.models import kvcache as KV
+from repro_torch.models.layers.init_utils import dense_init, embed_init
+
+_NORM_KEYS = ("final_norm",)
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it is CUDA and there is
+    none (the port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA was asked for but is not available; pass "
+                           "device='cpu' (--device cpu) to run on the CPU")
+    return dev
+
+
+def compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def storage_dtype(path: Sequence[str], dtype: torch.dtype) -> torch.dtype:
+    """Dtype a parameter at ``path`` is stored in: norm scales and biases
+    stay fp32 (their math is fp32); every other leaf is only ever used
+    cast to the compute dtype, so it is stored in ``dtype``."""
+    if any(k.startswith("ln_") or k in _NORM_KEYS for k in path):
+        return torch.float32
+    return dtype
+
+
+# ---------------------------------------------------------------------------
+# Stage compilation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    kind: str          # dense (pair | ssm | zamba: not ported yet)
+    count: int
+    local: bool = False
+
+
+def build_stages(cfg: ArchConfig) -> List[StageSpec]:
+    if cfg.is_ssm or cfg.is_hybrid:
+        raise NotImplementedError("SSM / hybrid stages: later slice")
+    if cfg.attn_kind == AttnKind.LOCAL_GLOBAL:
+        raise NotImplementedError("local/global pair stages: later slice")
+    local = cfg.attn_kind == AttnKind.SLIDING
+    return [StageSpec("dense", cfg.n_layers, local=local)]
+
+
+def tree_map(tree: Any, fn, path: Tuple[str, ...] = ()) -> Any:
+    """Map ``fn(path, leaf)`` over a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def layer(tree: Any, i: int) -> Any:
+    """Views of layer ``i`` of a stacked params or cache tree."""
+    return tree_map(tree, lambda _, t: t[i])
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: torch.device | str = "cuda") -> Dict[str, Any]:
+    """Random parameters with the JAX package's tree, names and shapes.
+
+    Values are drawn in fp32 from ``generator`` (which must live on
+    ``device``); all leaves but the norms' are stored in the config dtype
+    (see :func:`storage_dtype`).  Layers are drawn one at a time into the
+    stacked tensors, so fp32 copies of at most one layer exist at once.
+    """
+    device = resolve_device(device)
+    if cfg.learned_pos or cfg.frontend_dim:
+        raise NotImplementedError("learned positions / frontend stub: "
+                                  "later slice")
+    dtype = compute_dtype(cfg)
+
+    def store(path, t):
+        return t.to(storage_dtype(path, dtype))
+
+    params: Dict[str, Any] = {
+        "embed": store(("embed",), embed_init(generator, cfg.vocab_size,
+                                              cfg.d_model, device)),
+        "final_norm": B.norm_init(cfg, cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = store(("head",), dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), device=device))
+    stages = []
+    for spec in build_stages(cfg):
+        stacked = None
+        for i in range(spec.count):
+            elem = B.dense_block_init(generator, cfg, local=spec.local,
+                                      device=device)
+            if stacked is None:
+                stacked = tree_map(elem, lambda p, t: torch.empty(
+                    (spec.count,) + tuple(t.shape),
+                    dtype=storage_dtype(p, dtype), device=device))
+            dst = layer(stacked, i)
+            tree_map(elem, lambda p, t, _d=dst: _get(_d, p).copy_(t))
+        stages.append(stacked)
+    params["stages"] = stages
+    return params
+
+
+def _get(tree: Any, path: Sequence[str]) -> Any:
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def param_count(params: Any) -> int:
+    total = []
+    tree_map(params, lambda _, t: total.append(t.numel()))
+    return sum(total)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ArchConfig, params: Dict[str, Any],
+                 tokens: torch.Tensor) -> torch.Tensor:
+    dtype = compute_dtype(cfg)
+    x = params["embed"][tokens].to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype,
+                             device=x.device)
+    return x
+
+
+def head_logits(cfg: ArchConfig, params: Dict[str, Any],
+                h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the final-normed hidden states."""
+    h = B.norm_apply(cfg, params["final_norm"], h)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    z = (h @ w.to(h.dtype)).float()
+    if cfg.final_softcap > 0:
+        z = cfg.final_softcap * torch.tanh(z / cfg.final_softcap)
+    return z
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+def _cache_len(cfg: ArchConfig, local: bool, max_len: int) -> int:
+    spec = B.attn_spec(cfg, local)
+    return min(spec.window, max_len) if spec.window > 0 else max_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: torch.device | str = "cuda") -> List[Dict]:
+    """Empty caches, one entry per stage."""
+    device = resolve_device(device)
+    return [KV.init_kv(spec.count, batch,
+                       _cache_len(cfg, spec.local, max_len), cfg.n_kv_heads,
+                       cfg.head_dim, compute_dtype(cfg), device)
+            for spec in build_stages(cfg)]
+
+
+def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
+    """Run the full prompt (B, S), build caches.  Returns (last-token
+    logits (B, 1, V) fp32, caches).  Attention goes through the flash
+    attention kernel on CUDA tensors."""
+    bsz, seq = tokens.shape
+    positions = torch.arange(seq, device=tokens.device)[None].expand(
+        bsz, seq)
+    x = embed_tokens(cfg, params, tokens)
+    caches = init_cache(cfg, bsz, max_len, tokens.device)
+    for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
+        window = B.attn_spec(cfg, spec.local).window
+        for i in range(spec.count):
+            x, kv = B.dense_block_apply(layer(sp, i), x, cfg, positions,
+                                        local=spec.local, return_kv=True)
+            KV.fill_kv_from_prefill(layer(cache, i), kv[0], kv[1],
+                                    positions, window=window)
+    logits = head_logits(cfg, params, x[:, -1:])
+    return logits, caches
+
+
+def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
+                tokens: torch.Tensor, positions: torch.Tensor,
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+    """One serving step: ``tokens`` (B, 1) at absolute ``positions`` (B,).
+
+    Writes this token's (k, v) into ``caches`` in place and returns
+    (logits (B, 1, V) fp32, caches).
+    """
+    x = embed_tokens(cfg, params, tokens)
+    for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
+        total = cache["k"].shape[-3]
+        for i in range(spec.count):
+            bp, c = layer(sp, i), layer(cache, i)
+            k_new, v_new = B.decode_project_kv(bp, x, cfg, positions,
+                                               local=spec.local)
+            KV.write_kv(c["k"], c["v"], c["pos"], k_new, v_new, positions,
+                        cache_total=total)
+            x, _ = B.dense_block_apply(bp, x, cfg, positions,
+                                       local=spec.local,
+                                       kv_cache=(c["k"], c["v"], c["pos"]))
+    logits = head_logits(cfg, params, x)
+    return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# nn.Module holder
+# ---------------------------------------------------------------------------
+
+class _ParamTree(nn.Module):
+    """A params dict (of dicts, lists and tensors) as nested modules, with
+    the tree's own key names, frozen (serving needs no gradients).
+    ``nested`` is the same dict built once, its leaves these Parameters."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self.nested: Dict[str, Any] = {}
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                p = nn.Parameter(v, requires_grad=False)
+                self.register_parameter(k, p)
+                self.nested[k] = p
+            elif isinstance(v, dict):
+                sub = _ParamTree(v)
+                self.add_module(k, sub)
+                self.nested[k] = sub.nested
+            else:
+                subs = nn.ModuleList(_ParamTree(e) for e in v)
+                self.add_module(k, subs)
+                self.nested[k] = [e.nested for e in subs]
+
+
+class DecoderLM(nn.Module):
+    """A dense decoder's parameters and its serving entry points.
+
+    The parameters keep the JAX package's tree (``embed``, ``final_norm``,
+    ``head``, ``stages[i][...]`` stacked on a leading layer dimension) as
+    nested submodules.  Matmul weights, the embedding and the head are
+    stored in the config dtype (bf16 for the full-size models): the JAX
+    package casts each of them to that dtype before every use, so storing
+    them cast gives the same numbers with half the bytes.  Norm scales and
+    biases stay fp32, because the norms compute in fp32.
+    """
+
+    def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _ParamTree(params)
+
+    @classmethod
+    def init(cls, cfg: ArchConfig, generator: torch.Generator,
+             device: torch.device | str = "cuda") -> "DecoderLM":
+        return cls(cfg, init_params(cfg, generator, device))
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.tree.nested
+
+    def prefill(self, tokens: torch.Tensor,
+                max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
+        return prefill(self.cfg, self.params, tokens, max_len)
+
+    def decode_step(self, caches: List[Dict], tokens: torch.Tensor,
+                    positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, List[Dict]]:
+        return decode_step(self.cfg, self.params, caches, tokens, positions)

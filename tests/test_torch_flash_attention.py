@@ -1,0 +1,127 @@
+"""The port's flash attention: its plain version against the JAX package's
+Pallas kernel (interpret mode) and oracle on the CPU, and the CUDA kernel
+against the plain version on the card (skipped without one).
+
+JAX is imported only by the test that needs it, so that the CUDA tests
+also run on a machine with PyTorch and no JAX:
+``python -m pytest tests/test_torch_flash_attention.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention_reference
+
+# the cases of tests/test_kernels.py::FLASH_CASES
+FLASH_CASES = [
+    # b, h, kvh, sq, sk, d, causal, window, softcap
+    (2, 4, 4, 128, 128, 64, True, 0, 0.0),
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0),       # GQA
+    (1, 8, 1, 96, 96, 64, True, 0, 0.0),         # MQA, ragged edge
+    (2, 4, 4, 128, 128, 64, True, 48, 0.0),      # sliding window
+    (2, 4, 4, 128, 128, 64, True, 0, 30.0),      # softcap
+    (2, 4, 4, 64, 64, 64, False, 0, 0.0),        # non-causal (encoders)
+    (1, 2, 2, 64, 192, 32, True, 0, 0.0),        # cross lengths
+    (2, 4, 4, 128, 128, 128, True, 32, 50.0),    # everything at once
+]
+CASE_IDS = ["mha", "gqa", "mqa-ragged", "window", "softcap", "noncausal",
+            "cross", "all"]
+
+
+def _qkv(b, h, kvh, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, kvh, sk, d)).astype(np.float32),
+            rng.standard_normal((b, kvh, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,softcap",
+                         FLASH_CASES, ids=CASE_IDS)
+def test_plain_matches_pallas_and_oracle(b, h, kvh, sq, sk, d, causal,
+                                         window, softcap):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+    from repro.kernels.flash_attention.ref import \
+        attention_reference as jax_ref
+    q, k, v = _qkv(b, h, kvh, sq, sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    pallas = np.asarray(jax_flash(jq, jk, jv, block_q=32, block_kv=32,
+                                  interpret=True, **kw))
+    oracle = np.asarray(jax_ref(jq, jk, jv, **kw))
+    before = ops.LAUNCHES
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              **kw)
+    assert ops.LAUNCHES == before          # CPU tensors: plain version
+    assert got.dtype == torch.float32 and got.shape == (b, h, sq, d)
+    for ref in (pallas, oracle):
+        assert np.abs(got.numpy() - ref).max() < 2e-5
+
+
+def test_strided_views_match_contiguous():
+    """attention_apply hands the wrapper transposed (B, S, H, D) views."""
+    q, k, v = _qkv(2, 4, 2, 40, 40, 32, seed=1)
+    views = [torch.from_numpy(a).transpose(1, 2).contiguous().transpose(1, 2)
+             for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = ops.flash_attention(*views, causal=True, window=7)
+    ref = attention_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=True, window=7)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ({"dtype": torch.float16}, TypeError),
+    ({"d": 48}, ValueError),
+    ({"kvh": 3}, ValueError),
+    ({"stride": True}, ValueError),
+])
+def test_kernel_checks_refuse(bad, err):
+    """What the CUDA kernel does not take is refused before a launch."""
+    d, kvh = bad.get("d", 64), bad.get("kvh", 2)
+    dtype = bad.get("dtype", torch.float32)
+    q = torch.zeros(1, 4, 8, d, dtype=dtype)
+    k = torch.zeros(1, kvh, 8, d, dtype=dtype)
+    if bad.get("stride"):
+        k = torch.zeros(1, kvh, d, 8, dtype=dtype).transpose(2, 3)
+    with pytest.raises(err):
+        ops._check(q, k, k)
+
+
+def test_build_finds_the_kernel_source():
+    srcs = build.sources()
+    assert set(srcs) == {"flash_attention"}
+    src = srcs["flash_attention"]
+    assert src.read_text().startswith("// Flash attention forward")
+    lib = build._lib_path(src)
+    assert lib.parent == build.BUILD_DIR and lib.name.endswith(".so")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,softcap",
+                         FLASH_CASES, ids=CASE_IDS)
+def test_cuda_kernel_matches_plain(cuda, b, h, kvh, sq, sk, d, causal,
+                                   window, softcap, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(b, h, kvh, sq, sk, d))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = ops.LAUNCHES
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    ref = attention_reference(q, k, v, **kw)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-5
+    assert (got.float() - ref.float()).abs().max().item() < tol
