@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
 1. device  — the card's name and power limit (``nvidia-smi``); without
              CUDA the script exits 2;
-2. build   — the CUDA kernels from the sources in this checkout (``nvcc``);
+2. build   — the CUDA kernels from the sources in this checkout (``nvcc``,
+             one process per source, all at once);
 3. kernel  — the flash attention kernel against its plain PyTorch version on
              the card: the cases of ``tests/test_kernels.py`` in fp32 (TF32
              off, |err| <= 2e-5) and bf16 (|err| <= 1e-3 + 1e-2 |plain|,
@@ -18,13 +19,26 @@ Phases, each printing one JSON line:
 4. serve   — ``launch.serve.serve`` on llama-7b at full width (bf16, random
              weights from a seed): batch 8, prompt 512, 32 generated tokens;
              the prefill must launch the kernel once per layer;
-5. consistency — fp32, TF32 off, full width: the last logits of a prefill of
-             S+1 tokens against a prefill of S tokens and one decode step
-             (the kernel path against the plain decode path), within 2e-3 of
-             max|logits|; and a reduced model on the card against the same
-             parameters on the CPU (plain version), within 1e-4.
+5. ssd_kernel — the SSD scan kernel against its plain version on the card,
+             y and final state: the cases of ``tests/test_kernels.py`` and a
+             ragged L with slow decay, from zero and from a given initial
+             state, in fp32 (|err| <= 1e-4 max|plain|)
+             and bf16 (y: |err| <= 1e-4 max|plain| + 1e-2 |plain|), and
+             the serving shape in bf16 as the strided views the model
+             passes; times of kernel and plain version at the serving
+             shape beside the least time the card could take;
+6. serve_mamba2 — ``launch.serve.serve`` on mamba2-370m at full width
+             (bf16, random weights from a seed): batch 8, prompt 2048, 32
+             generated tokens; the prefill must launch the SSD kernel once
+             per layer and the flash kernel never;
+7. consistency — fp32, TF32 off, full width, for llama-7b and mamba2-370m:
+             the last logits of a prefill of S+1 tokens against a prefill
+             of S tokens and one decode step (the kernel path against the
+             plain decode path), within 2e-3 of max|logits|; and each model
+             reduced, on the card against the same parameters on the CPU
+             (plain versions), within 1e-4.
 
-Then a line ``{"kernels": [...]}`` with each kernel's launches on the
+Then a line ``{"kernels": [...]}`` with each kernel's launches on its
 serving run, its error and its times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
@@ -52,6 +66,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     attention_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
@@ -78,6 +94,20 @@ GQA_SHAPE = (2, 32, 4, 512, 512, 64, True, 0, 0.0)         # tiny-llama heads
 # one rounding step (<= 2**-7 of the value) plus fp32 noise near zero.
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-3, 1e-2)}
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+
+# b, h, l, p, n (tests/test_kernels.py:60-66; their chunk is not an argument
+# here: the kernel tiles at 64 positions)
+SSD_CASES = [
+    (2, 4, 128, 32, 16),
+    (1, 2, 96, 64, 32),      # ragged L
+    (2, 4, 256, 32, 64),
+    (1, 8, 64, 64, 128),     # mamba2-370m-like head geometry
+]
+SSD_RAGGED = (2, 4, 1000, 64, 128)   # slow decay: the state crosses chunks
+SSD_Q = 64                           # the kernel's tile length
+KERNEL_OPS = {"flash_attention": flash_ops, "ssd_scan": ssd_ops}
+MAMBA = "mamba2-370m"
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN = 8, 2048, 32
 
 
 def emit(obj) -> None:
@@ -209,44 +239,181 @@ def phase_kernel() -> dict:
             "bound_by": bound_by}
 
 
-def phase_serve() -> int:
-    cfg = get_arch("llama-7b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def _ssd_inputs(shape, dtype, seed=0, slow=False):
+    """x (B, H, L, P), dt (B, H, L) fp32, a (H,), b, c (B, L, N) on the card,
+    drawn as ``tests/test_kernels.py`` draws them; ``slow`` makes the decay
+    slow (small dt, |a| <= 1), so the state carries across many chunks."""
+    b, h, l, p, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*s):
+        return torch.randn(*s, generator=g, device="cuda")
+    x = mk(b, h, l, p).to(dtype)
+    if slow:
+        dt = F.softplus(mk(b, h, l) - 4.0)
+        a = -torch.exp(torch.linspace(-3.0, 0.0, h, device="cuda"))
+    else:
+        dt = F.softplus(mk(b, h, l))
+        a = -torch.exp(torch.linspace(0.0, 1.5, h, device="cuda"))
+    return x, dt, a, mk(b, l, n).to(dtype), mk(b, l, n).to(dtype)
+
+
+def _ssd_model_views(shape, seed=0):
+    """The serving shape as ``ssd_apply`` passes it: x, b, c column slices
+    of one (B, L, d_inner + 2N) bf16 conv output, dt a transposed
+    (B, L, H) fp32 tensor, mamba2's own a and dt bias."""
+    b, h, l, p, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    di = h * p
+    xbc = torch.randn(b, l, di + 2 * n, generator=g,
+                      device="cuda").to(torch.bfloat16)
+    dt_bias = torch.empty(h, device="cuda").uniform_(-4.0, -1.0,
+                                                     generator=g)
+    dt = F.softplus(torch.randn(b, l, h, generator=g, device="cuda")
+                    + dt_bias)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    x = xbc[..., :di].unflatten(-1, (h, p)).transpose(1, 2)
+    return (x, dt.transpose(1, 2), a, xbc[..., di: di + n],
+            xbc[..., di + n:])
+
+
+def _ssd_compare(name, inputs) -> tuple:
+    """Kernel against plain on ``inputs``: y elementwise (fp32: 1e-4 of
+    max|plain|; bf16: that plus 1e-2 |plain|, one rounding step of bf16,
+    since both round one fp32 result), the final state at 1e-4 of its
+    max.  Returns y's largest absolute error and the largest error of y
+    or the state relative to its max|plain|."""
+    y, hT = ssd_ops.ssd_scan(*inputs)
+    torch.cuda.synchronize()
+    y_ref, h_ref = ssd_scan_reference(*inputs)
+    rtol = 1e-2 if inputs[0].dtype == torch.bfloat16 else 0.0
+    errs = []
+    for what, got, ref, rt in (("y", y, y_ref, rtol), ("h", hT, h_ref, 0.0)):
+        got, ref = got.float(), ref.float()
+        scale = ref.abs().max().item()
+        diff = (got - ref).abs()
+        over = (diff / (1e-4 * scale + rt * ref.abs())).max().item()
+        if not (np.isfinite(over) and over <= 1.0 and scale > 0):
+            raise AssertionError(f"ssd scan {name} {what}: max err "
+                                 f"{diff.max().item()}, {over} x the "
+                                 f"tolerance (max|plain| {scale})")
+        errs.append((diff.max().item(), diff.max().item() / scale))
+    return errs[0][0], max(rel for _, rel in errs)
+
+
+def _ssd_bound(shape, dtype):
+    """Least time (ms) for the scan at ``shape``: x, dt, b, c read once and
+    y and the final state written once at the HBM rate, against the FLOPs
+    of the chunked form at the kernel's tile over causal pairs (C B^T and
+    its product with x dt within each chunk, C h^T and the state update) at
+    the peak for ``dtype``."""
+    b, h, l, p, n = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (esize * (2 * b * h * l * p + 2 * b * l * n)
+              + 4 * (b * h * l + h + b * h * p * n))
+    flops = 0
+    for l0 in range(0, l, SSD_Q):
+        q = min(SSD_Q, l - l0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * pairs * (n + p) + 4 * q * p * n
+    flops *= b * h
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def phase_ssd_kernel() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        for i, case in enumerate(SSD_CASES):
+            errs[f"case{i}-{tag}"] = _ssd_compare(
+                f"{case} {tag}", _ssd_inputs(case, dtype))[1]
+        errs[f"ragged-{tag}"] = _ssd_compare(
+            f"{SSD_RAGGED} {tag}",
+            _ssd_inputs(SSD_RAGGED, dtype, slow=True))[1]
+        b, h, _, p, n = SSD_RAGGED
+        h0 = torch.randn(b, h, p, n, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+        errs[f"ragged-h0-{tag}"] = _ssd_compare(
+            f"{SSD_RAGGED} h0 {tag}",
+            _ssd_inputs(SSD_RAGGED, dtype, seed=2, slow=True) + (h0,))[1]
+    cfg = get_arch(MAMBA)
+    shape = (MAMBA_BATCH, cfg.ssm_heads, MAMBA_PROMPT, cfg.ssm_head_dim,
+             cfg.ssm_state)
+    inputs = _ssd_model_views(shape)
+    serve_err, errs["serve-views-bfloat16"] = _ssd_compare(
+        f"{shape} views", inputs)
+    ragged = (shape[0], shape[1], 1025) + shape[3:]
+    errs["serve-ragged-views-bfloat16"] = _ssd_compare(
+        f"{ragged} views", _ssd_model_views(ragged, seed=1))[1]
+
+    kernel_ms = _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20)
+    plain_ms = _time_ms(lambda: ssd_scan_reference(*inputs), 3, warmup=1)
+    kernel_ms_2 = _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20)
+    bound_ms, bound_by, nbytes, flops = _ssd_bound(shape, torch.bfloat16)
+    emit({"phase": "ssd_kernel", "max_rel_err": errs,
+          "serve_max_abs_err": serve_err, "shape": shape,
+          "dtype": "bfloat16", "kernel_ms": kernel_ms,
+          "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes the SSD scan",
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+          "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9})
+    return {"max_abs_err": serve_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_serve(arch: str, batch: int, prompt: int, gen: int,
+                phase: str, expect: dict) -> dict:
+    """Serve ``arch`` at full width; ``expect`` maps each kernel's name
+    to the launches the served run must show."""
+    cfg = get_arch(arch)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    model = M.DecoderLM.init(cfg, gen, "cuda")
+    model = M.DecoderLM.init(cfg, gen_, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+        0, cfg.vocab_size, (batch, prompt))
     serve(cfg, model, prompts, 2, "cuda")     # warm-up at the same shapes
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.LAUNCHES = 0
-    res = serve(cfg, model, prompts, SERVE_GEN, "cuda")
-    launches = flash_ops.LAUNCHES
+    for ops in KERNEL_OPS.values():
+        ops.LAUNCHES = 0
+    res = serve(cfg, model, prompts, gen, "cuda")
+    launches = {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the kernel {launches} "
-                             f"times, not {cfg.n_layers}")
-    if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN) or \
+    if launches != expect:
+        raise AssertionError(f"{arch}: kernel launches {launches}, "
+                             f"expected {expect}")
+    if tuple(toks.shape) != (batch, gen) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
     if not bool(torch.isfinite(res["last_logits"]).all()):
         raise AssertionError("non-finite logits")
-    emit({"phase": "serve", "arch": cfg.name, "batch": SERVE_BATCH,
-          "prompt": SERVE_PROMPT, "gen": SERVE_GEN, "init_s": init_s,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "batch": batch,
+          "prompt": prompt, "gen": gen, "init_s": init_s,
           "params": M.param_count(model.params),
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_s": res["decode_s"],
           "decode_tok_s": res["decode_tok_s"], "peak_mem_gib": peak / 2**30,
           "kernel_launches": launches, "tokens_seq0": toks[0].tolist()})
+    del model, res
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_consistency(batch: int = 2, seq: int = 256) -> None:
+def phase_consistency(arch: str, batch: int, seq: int) -> dict:
+    """fp32 at full width: prefill(S+1) against prefill(S) + one decode
+    step; then ``arch`` reduced, on the card against the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("llama-7b"), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = M.DecoderLM.init(cfg, gen, "cuda")
     toks = torch.from_numpy(np.random.default_rng(1).integers(
@@ -262,11 +429,12 @@ def phase_consistency(batch: int = 2, seq: int = 256) -> None:
     del model, caches
     torch.cuda.empty_cache()
     if not (np.isfinite(err) and err <= 2e-3 * scale):
-        raise AssertionError(f"prefill/decode: err {err} > 2e-3 * {scale}")
+        raise AssertionError(f"{arch} prefill/decode: err {err} > 2e-3 * "
+                             f"{scale}")
 
     # small input: the kernel path on the card against the plain path on
     # the CPU, same parameters
-    small = get_arch("llama-7b").reduced()
+    small = get_arch(arch).reduced()
     gen = torch.Generator().manual_seed(2)
     cpu_params = M.init_params(small, gen, "cpu")
     tree = M.tree_map(cpu_params, lambda _, t: t.numpy())
@@ -279,12 +447,14 @@ def phase_consistency(batch: int = 2, seq: int = 256) -> None:
     small_err = (got.cpu() - ref).abs().max().item()
     small_scale = ref.abs().max().item()
     if not (np.isfinite(small_err) and small_err <= 1e-4 * small_scale):
-        raise AssertionError(f"reduced llama-7b cuda vs cpu: err "
+        raise AssertionError(f"reduced {arch} cuda vs cpu: err "
                              f"{small_err} > 1e-4 * {small_scale}")
-    emit({"phase": "consistency", "dtype": "float32", "layers": cfg.n_layers,
-          "batch": batch, "seq": seq, "max_abs_err": err,
-          "max_abs_logit": scale, "rel": err / scale,
-          "small_cuda_vs_cpu_rel": small_err / small_scale})
+    res = {"phase": "consistency", "arch": arch, "dtype": "float32",
+           "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "max_abs_err": err, "max_abs_logit": scale, "rel": err / scale,
+           "small_cuda_vs_cpu_rel": small_err / small_scale}
+    emit(res)
+    return res
 
 
 def main() -> int:
@@ -293,17 +463,28 @@ def main() -> int:
         return 2
     dev = phase_device()
     phase_build()
-    kern = phase_kernel()
-    launches = phase_serve()
-    torch.cuda.empty_cache()
-    phase_consistency()
+    flash = phase_kernel()
+    ssd = phase_ssd_kernel()
+    llama = get_arch("llama-7b")
+    flash_launches = phase_serve(
+        "llama-7b", SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve",
+        {"flash_attention": llama.n_layers, "ssd_scan": 0})
+    ssd_launches = phase_serve(
+        MAMBA, MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, "serve_mamba2",
+        {"flash_attention": 0, "ssd_scan": get_arch(MAMBA).n_layers})
+    phase_consistency("llama-7b", 2, 256)
+    phase_consistency(MAMBA, 2, 1024)
     print(dev["nvidia_smi"], flush=True)
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
-        "launches": launches, **kern}]})
+    emit({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
+         "launches": flash_launches["flash_attention"], **flash},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:72",
+         "launches": ssd_launches["ssd_scan"], **ssd}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
     return 0

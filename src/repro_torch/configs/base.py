@@ -207,5 +207,5 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import every config module the port has once so registrations run
-    from repro_torch.configs import (gemma_2b, paper_models,  # noqa: F401
-                                     stablelm_1_6b)
+    from repro_torch.configs import (gemma_2b, mamba2_370m,  # noqa: F401
+                                     paper_models, stablelm_1_6b)

@@ -22,7 +22,7 @@ def params_from_numpy(tree: Dict[str, Any], device: torch.device | str,
                       dtype: torch.dtype | None = None) -> Dict[str, Any]:
     """The same tree, leaf for leaf, as tensors on ``device``.
 
-    With ``dtype`` every leaf but the norms' is stored in it (as
+    With ``dtype`` every leaf but the fp32 ones is stored in it (as
     :func:`repro_torch.models.model.init_params` stores them); without it
     the leaves keep their numpy dtype.
     """

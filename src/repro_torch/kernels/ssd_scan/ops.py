@@ -1,0 +1,135 @@
+"""Public wrapper around the CUDA SSD scan kernel.
+
+The device of the tensors picks the path, with no option: CPU tensors go
+to the plain PyTorch version (:mod:`.ref`), CUDA tensors launch the kernel
+in ``csrc/ssd_scan.cu`` or raise on what it does not take.  There is no
+fallback from the kernel to the plain version.  The kernel masks a ragged
+L itself, so unlike the TPU wrapper nothing is padded; it reads through
+the strides it is given, so the column slices and transposed views that
+``models.layers.ssd.ssd_apply`` passes are not copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
+
+#: Launches of the CUDA kernel (not of the plain version) since import or
+#: since a caller last reset it.
+LAUNCHES = 0
+
+HEAD_DIMS = (32, 64)               # P instantiated in the kernel
+STATE_DIMS = (16, 32, 64, 128)     # N instantiated in the kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        fn = build.load("ssd_scan").ssd_scan_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+        _FN = fn
+    return _FN
+
+
+def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+           b: torch.Tensor, c: torch.Tensor,
+           h0: Optional[torch.Tensor] = None) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 3 \
+            or c.dim() != 3:
+        raise ValueError("ssd_scan wants x (B, H, L, P), dt (B, H, L), "
+                         "a (H,), b and c (B, L, N)")
+    bsz, h, l, p = x.shape
+    n = b.shape[2]
+    if tuple(dt.shape) != (bsz, h, l) or tuple(a.shape) != (h,) \
+            or tuple(b.shape) != (bsz, l, n) or c.shape != b.shape:
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)}")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"ssd_scan kernel takes x, b, c in float32 or "
+                        f"bfloat16, one dtype for all: {x.dtype}, {b.dtype},"
+                        f" {c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan kernel takes dt and a in float32: "
+                        f"{dt.dtype}, {a.dtype}")
+    if p not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan kernel takes head dims {HEAD_DIMS}, "
+                         f"not {p}")
+    if n not in STATE_DIMS:
+        raise ValueError(f"ssd_scan kernel takes state dims {STATE_DIMS}, "
+                         f"not {n}")
+    if l == 0:
+        raise ValueError("ssd_scan needs at least one position")
+    if bsz > 65535:
+        raise ValueError(f"ssd_scan kernel takes batch <= 65535, not {bsz}")
+    if len({t.device for t in (x, dt, a, b, c)}) != 1:
+        raise ValueError("x, dt, a, b, c on different devices")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: last dim must have stride 1, strides "
+                             f"{t.stride()}")
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    if h0 is not None:
+        if tuple(h0.shape) != (bsz, h, p, n):
+            raise ValueError(f"h0 must be {(bsz, h, p, n)}, not "
+                             f"{tuple(h0.shape)}")
+        if h0.dtype != torch.float32:
+            raise TypeError(f"ssd_scan kernel takes h0 in float32: "
+                            f"{h0.dtype}")
+        if h0.device != x.device or not h0.is_contiguous():
+            raise ValueError("h0 must be contiguous, on x's device")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor,
+             h0: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD scan.  x: (B, H, L, P); dt: (B, H, L) fp32; a: (H,) fp32;
+    b, c: (B, L, N); h0: the state before position 0, (B, H, P, N) fp32
+    and contiguous, or None for zero.
+
+    Returns ``(y, h_final)``: y (B, H, L, P) in x's dtype and the state
+    after position L - 1, (B, H, P, N) fp32.  Unlike the JAX wrapper
+    ``repro.kernels.ssd_scan.ops.ssd_scan``, which returns y alone, this
+    also returns the final state, which serving keeps as the SSM cache,
+    and it takes an initial state, which the TPU kernel does not.
+    It has no ``chunk`` argument: the kernel tiles at 64 positions, and
+    the result depends on the tiling only through the order of fp32 sums.
+    On CUDA, y is stored as (B, L, H, P) and returned as its
+    (B, H, L, P) view, so the model's transpose back is free.
+    """
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return ssd_scan_reference(x, dt, a, b, c, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    _check(x, dt, a, b, c, h0)
+    bsz, h, l, p = x.shape
+    n = b.shape[2]
+    y = torch.empty((bsz, l, h, p), dtype=x.dtype,
+                    device=x.device).transpose(1, 2)
+    h_final = torch.empty((bsz, h, p, n), dtype=torch.float32,
+                          device=x.device)
+    fn = _kernel_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), None if h0 is None else h0.data_ptr(),
+                y.data_ptr(), h_final.data_ptr(),
+                _DTYPES[x.dtype], bsz, h, l, p, n,
+                *x.stride()[:3], *dt.stride(), b.stride(0), b.stride(1),
+                c.stride(0), c.stride(1), *y.stride()[:3], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return y, h_final

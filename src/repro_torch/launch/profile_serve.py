@@ -3,6 +3,8 @@ few decode steps of :func:`repro_torch.launch.serve.serve`'s path.
 
     python -m repro_torch.launch.profile_serve --arch llama-7b \
         --batch 8 --prompt-len 512 --steps 8
+    python -m repro_torch.launch.profile_serve --arch mamba2-370m \
+        --batch 8 --prompt-len 2048 --steps 8
 
 Needs a CUDA device.  Each window runs twice: once bare, for the host
 wall time (work ending in a device synchronise), and once under the
@@ -11,7 +13,7 @@ window (``prefill``, ``decode``) with the wall time, the device time
 summed over the window's kernels, the device's idle share
 (1 - device / wall; the kernels run on one stream, so they do not
 overlap), the device time by kind of kernel (the flash attention kernel,
-matrix products, the rest) and the kernels that took most of it.
+the SSD scan kernel, matrix products, the rest) and the kernels that took most of it.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ def _kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in low:
         return "flash_attention"
+    if "ssd_scan_kernel" in low:
+        return "ssd_scan"
     if any(m in low for m in _GEMM_MARKS):
         return "matmul"
     return "other"

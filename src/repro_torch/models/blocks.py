@@ -1,13 +1,13 @@
-"""Per-layer blocks: the dense transformer block.
+"""Per-layer blocks: the dense transformer block and the Mamba2 block.
 
-A *block* is the unit the layer stack loops over.  ``dense_block_apply``
-works in three modes:
+A *block* is the unit the layer stack loops over.  Each block kind has an
+``init`` and an ``apply`` that works in three modes:
 
 * ``train``   — full sequence, no cache;
-* ``prefill`` — full sequence, returns fresh KV for the cache;
+* ``prefill`` — full sequence, returns fresh KV / SSM state for the cache;
 * ``decode``  — one token against an existing cache.
 
-MoE and Mamba2 blocks are not ported yet.
+MoE blocks are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import (layernorm_apply, layernorm_init,
                                              rmsnorm_apply, rmsnorm_init)
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.layers.ssd import (SSMSpec, ssd_apply,
+                                           ssd_decode_step, ssd_init)
 
 
 def _no_moe(cfg: ArchConfig) -> None:
@@ -62,6 +64,16 @@ def attn_spec(cfg: ArchConfig, local: bool) -> AttnSpec:
         use_rope=not cfg.learned_pos,
     )
 
+
+def ssm_spec(cfg: ArchConfig) -> SSMSpec:
+    return SSMSpec(d_model=cfg.d_model, d_inner=cfg.d_inner,
+                   n_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                   chunk=cfg.ssm_chunk, conv_width=cfg.ssm_conv_width)
+
+
+# ---------------------------------------------------------------------------
+# Dense transformer block
+# ---------------------------------------------------------------------------
 
 def dense_block_init(generator: torch.Generator, cfg: ArchConfig,
                      local: bool = False,
@@ -134,3 +146,46 @@ def decode_project_kv(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if spec.use_rope:
         k = apply_rope(k, positions[:, None], spec.rope_theta)
     return k, v
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSM) block
+# ---------------------------------------------------------------------------
+
+def ssm_block_init(generator: torch.Generator, cfg: ArchConfig,
+                   device: torch.device | str = "cuda") -> dict:
+    return {
+        "ln": norm_init(cfg, cfg.d_model, device),
+        "ssd": ssd_init(generator, ssm_spec(cfg), device),
+    }
+
+
+def ssm_block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    decode: bool = False):
+    """Returns (y, (ssm_state, conv_state)).  ``decode`` takes one token
+    (B, 1, D) and needs ``state``; otherwise x is a whole sequence and
+    ``state`` (or none) is the state before it."""
+    spec = ssm_spec(cfg)
+    h = norm_apply(cfg, params["ln"], x)
+    if decode:
+        if state is None:
+            raise ValueError("decode needs the SSM state")
+        out, new_state = ssd_decode_step(params["ssd"], h, spec,
+                                         state[0], state[1])
+    else:
+        h0, conv0 = state if state is not None else (None, None)
+        out, new_state = ssd_apply(params["ssd"], h, spec, h0=h0,
+                                   conv0=conv0)
+    return x + out, new_state
+
+
+def init_ssm_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                   device: torch.device | str = "cuda") -> Tuple:
+    """Zero (ssm state (B, H, P, N) fp32, conv state (B, W-1, conv_dim))."""
+    spec = ssm_spec(cfg)
+    h = torch.zeros((batch, spec.heads, spec.head_dim, spec.n_state),
+                    dtype=torch.float32, device=device)
+    conv = torch.zeros((batch, spec.conv_width - 1, spec.conv_dim),
+                       dtype=dtype, device=device)
+    return h, conv

@@ -1,4 +1,4 @@
-"""The model's spine: config-driven decoder stacks (dense stages).
+"""The model's spine: config-driven decoder stacks (dense and SSM stages).
 
 An architecture compiles to a list of :class:`StageSpec`s — homogeneous
 groups of blocks whose parameters are stacked on a leading layer
@@ -11,7 +11,7 @@ the ``nn.Module`` that holds the parameters):
 
 * :func:`init_params`
 * :func:`init_cache`
-* :func:`prefill`       — build KV caches, return last logits
+* :func:`prefill`       — build KV / SSM caches, return last logits
 * :func:`decode_step`   — one-token serving step (updates caches in place)
 """
 
@@ -29,7 +29,11 @@ from repro_torch.models import blocks as B
 from repro_torch.models import kvcache as KV
 from repro_torch.models.layers.init_utils import dense_init, embed_init
 
-_NORM_KEYS = ("final_norm",)
+#: Leaves the JAX package keeps in fp32 and uses in fp32 (norm scales, the
+#: SSM block's decay, step and skip parameters) or casts at their use (the
+#: conv bias); ``ln_*`` keys are norms too.
+_FP32_KEYS = ("final_norm", "ln", "gate_norm", "a_log", "dt_bias", "d_skip",
+              "conv_b")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -47,10 +51,11 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def storage_dtype(path: Sequence[str], dtype: torch.dtype) -> torch.dtype:
-    """Dtype a parameter at ``path`` is stored in: norm scales and biases
-    stay fp32 (their math is fp32); every other leaf is only ever used
-    cast to the compute dtype, so it is stored in ``dtype``."""
-    if any(k.startswith("ln_") or k in _NORM_KEYS for k in path):
+    """Dtype a parameter at ``path`` is stored in: the leaves of
+    ``_FP32_KEYS`` and ``ln_*`` stay fp32, as in the JAX package; every
+    other leaf is only ever used cast to the compute dtype, so it is stored
+    in ``dtype``."""
+    if any(k.startswith("ln_") or k in _FP32_KEYS for k in path):
         return torch.float32
     return dtype
 
@@ -61,14 +66,18 @@ def storage_dtype(path: Sequence[str], dtype: torch.dtype) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class StageSpec:
-    kind: str          # dense (pair | ssm | zamba: not ported yet)
+    kind: str          # dense | ssm (pair | zamba: not ported yet)
     count: int
     local: bool = False
 
 
 def build_stages(cfg: ArchConfig) -> List[StageSpec]:
-    if cfg.is_ssm or cfg.is_hybrid:
-        raise NotImplementedError("SSM / hybrid stages: later slice")
+    """The stages of ``cfg``: one ``dense`` stage or, for Mamba2, one
+    ``ssm`` stage.  Hybrid (zamba2) and local/global pair stages raise."""
+    if cfg.is_ssm:
+        return [StageSpec("ssm", cfg.n_layers)]
+    if cfg.is_hybrid:
+        raise NotImplementedError("hybrid (zamba2) stages: later slice")
     if cfg.attn_kind == AttnKind.LOCAL_GLOBAL:
         raise NotImplementedError("local/global pair stages: later slice")
     local = cfg.attn_kind == AttnKind.SLIDING
@@ -94,7 +103,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters with the JAX package's tree, names and shapes.
 
     Values are drawn in fp32 from ``generator`` (which must live on
-    ``device``); all leaves but the norms' are stored in the config dtype
+    ``device``); all leaves but the fp32 ones are stored in the config dtype
     (see :func:`storage_dtype`).  Layers are drawn one at a time into the
     stacked tensors, so fp32 copies of at most one layer exist at once.
     """
@@ -119,8 +128,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     for spec in build_stages(cfg):
         stacked = None
         for i in range(spec.count):
-            elem = B.dense_block_init(generator, cfg, local=spec.local,
-                                      device=device)
+            elem = _element_init(generator, cfg, spec, device)
             if stacked is None:
                 stacked = tree_map(elem, lambda p, t: torch.empty(
                     (spec.count,) + tuple(t.shape),
@@ -130,6 +138,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         stages.append(stacked)
     params["stages"] = stages
     return params
+
+
+def _element_init(generator: torch.Generator, cfg: ArchConfig,
+                  spec: StageSpec, device: torch.device) -> Dict[str, Any]:
+    if spec.kind == "ssm":
+        return B.ssm_block_init(generator, cfg, device)
+    return B.dense_block_init(generator, cfg, local=spec.local,
+                              device=device)
 
 
 def _get(tree: Any, path: Sequence[str]) -> Any:
@@ -180,25 +196,43 @@ def _cache_len(cfg: ArchConfig, local: bool, max_len: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str = "cuda") -> List[Dict]:
-    """Empty caches, one entry per stage."""
+    """Empty caches, one entry per stage: ``{"k", "v", "pos"}`` for a dense
+    stage, ``{"h": (L, B, H, P, N) fp32, "conv": (L, B, W-1, conv_dim)}``
+    for an SSM stage."""
     device = resolve_device(device)
-    return [KV.init_kv(spec.count, batch,
-                       _cache_len(cfg, spec.local, max_len), cfg.n_kv_heads,
-                       cfg.head_dim, compute_dtype(cfg), device)
-            for spec in build_stages(cfg)]
+    dtype = compute_dtype(cfg)
+    caches: List[Dict] = []
+    for spec in build_stages(cfg):
+        if spec.kind == "ssm":
+            h, conv = B.init_ssm_state(cfg, batch, dtype, device)
+            caches.append({
+                "h": h.expand((spec.count,) + h.shape).contiguous(),
+                "conv": conv.expand((spec.count,) + conv.shape).contiguous()})
+        else:
+            caches.append(KV.init_kv(
+                spec.count, batch, _cache_len(cfg, spec.local, max_len),
+                cfg.n_kv_heads, cfg.head_dim, dtype, device))
+    return caches
 
 
 def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
     """Run the full prompt (B, S), build caches.  Returns (last-token
-    logits (B, 1, V) fp32, caches).  Attention goes through the flash
-    attention kernel on CUDA tensors."""
+    logits (B, 1, V) fp32, caches).  On CUDA tensors, attention goes
+    through the flash attention kernel and the SSM scan through the SSD
+    scan kernel."""
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
     x = embed_tokens(cfg, params, tokens)
     caches = init_cache(cfg, bsz, max_len, tokens.device)
     for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
+        if spec.kind == "ssm":
+            for i in range(spec.count):
+                x, (h, conv) = B.ssm_block_apply(layer(sp, i), x, cfg)
+                cache["h"][i].copy_(h)
+                cache["conv"][i].copy_(conv)
+            continue
         window = B.attn_spec(cfg, spec.local).window
         for i in range(spec.count):
             x, kv = B.dense_block_apply(layer(sp, i), x, cfg, positions,
@@ -214,11 +248,20 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One serving step: ``tokens`` (B, 1) at absolute ``positions`` (B,).
 
-    Writes this token's (k, v) into ``caches`` in place and returns
-    (logits (B, 1, V) fp32, caches).
+    Writes this token's (k, v), or the new SSM and conv state, into
+    ``caches`` in place and returns (logits (B, 1, V) fp32, caches).
     """
     x = embed_tokens(cfg, params, tokens)
     for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
+        if spec.kind == "ssm":
+            for i in range(spec.count):
+                c = layer(cache, i)
+                x, (h, conv) = B.ssm_block_apply(
+                    layer(sp, i), x, cfg, state=(c["h"], c["conv"]),
+                    decode=True)
+                c["h"].copy_(h)
+                c["conv"].copy_(conv)
+            continue
         total = cache["k"].shape[-3]
         for i in range(spec.count):
             bp, c = layer(sp, i), layer(cache, i)
@@ -261,7 +304,8 @@ class _ParamTree(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """A dense decoder's parameters and its serving entry points.
+    """A decoder's parameters (dense or Mamba2) and its serving entry
+    points.
 
     The parameters keep the JAX package's tree (``embed``, ``final_norm``,
     ``head``, ``stages[i][...]`` stacked on a leading layer dimension) as
@@ -269,7 +313,8 @@ class DecoderLM(nn.Module):
     stored in the config dtype (bf16 for the full-size models): the JAX
     package casts each of them to that dtype before every use, so storing
     them cast gives the same numbers with half the bytes.  Norm scales and
-    biases stay fp32, because the norms compute in fp32.
+    biases and the SSM block's ``a_log``, ``dt_bias``, ``d_skip`` and
+    ``conv_b`` stay fp32, as in the JAX package (:func:`storage_dtype`).
     """
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):

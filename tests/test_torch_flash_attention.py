@@ -93,7 +93,7 @@ def test_kernel_checks_refuse(bad, err):
 
 def test_build_finds_the_kernel_source():
     srcs = build.sources()
-    assert set(srcs) == {"flash_attention"}
+    assert set(srcs) == {"flash_attention", "ssd_scan"}
     src = srcs["flash_attention"]
     assert src.read_text().startswith("// Flash attention forward")
     lib = build._lib_path(src)

@@ -1,9 +1,10 @@
 """The PyTorch port's serving path against the JAX package, on the CPU.
 
 Both packages get the same parameters (the JAX init, perturbed where it
-is zero so norms and biases matter, handed over as numpy) and the same
-prompts; prefill logits and caches and four greedy decode steps must
-agree within 1e-4 of max|logits|, with identical greedy tokens.  Also:
+is constant so norms, biases and skips matter, handed over as numpy) and
+the same prompts; prefill logits, every leaf of every cache and four
+greedy decode steps must agree within 1e-4 of max|logits| (of max|leaf|
+for caches), with identical greedy tokens.  Also:
 the port imports neither JAX nor the JAX package, and its entry points
 refuse to fall back to the CPU when CUDA is asked for and absent.
 """
@@ -30,15 +31,19 @@ from repro_torch.models import model as PM
 
 REPO = Path(__file__).resolve().parents[1]
 
-# (arch, overrides applied to the reduced config on both sides)
+# (arch, overrides applied to the reduced config on both sides, prompt)
 SERVE_CASES = [
-    ("llama-7b", {}),                            # SwiGLU, MHA
-    ("gemma-2b", {}),                            # MQA, tied, GeGLU, scale
-    ("gpt-1.3b", {}),                            # GELU with biases
-    ("llama-7b", {"n_kv_heads": 2}),             # GQA
-    ("llama-7b", {"attn_kind": "sliding", "window": 8}),  # ring-buffer cache
+    ("llama-7b", {}, 16),                        # SwiGLU, MHA
+    ("gemma-2b", {}, 16),                        # MQA, tied, GeGLU, scale
+    ("gpt-1.3b", {}, 16),                        # GELU with biases
+    ("llama-7b", {"n_kv_heads": 2}, 16),         # GQA
+    ("llama-7b", {"attn_kind": "sliding", "window": 8}, 16),  # ring buffer
+    ("mamba2-370m", {}, 40),                     # SSM; ragged vs chunk 32
 ]
-BATCH, PROMPT, STEPS = 2, 16, 4
+SERVE_IDS = [f"{a}-{'-'.join(o) or 'base'}" for a, o, _ in SERVE_CASES]
+BATCH, STEPS = 2, 4
+#: leaves the JAX init leaves constant (zero or one), made random here
+_PERTURBED = ("scale", "bias", "b_up", "b_down", "conv_b", "d_skip")
 
 
 def _cfgs(arch, overrides):
@@ -53,8 +58,8 @@ def _cfgs(arch, overrides):
 
 
 def _perturbed_params(cfg, seed):
-    """JAX init on the host, with norms and biases (zero at init) made
-    random so that they take part in the comparison."""
+    """JAX init on the host, with norms, biases and skips (constant at
+    init) made random so that they take part in the comparison."""
     tree = jax.device_get(JM.init_params(cfg, jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
 
@@ -64,7 +69,7 @@ def _perturbed_params(cfg, seed):
         if isinstance(t, list):
             return [walk(v, path) for v in t]
         a = np.asarray(t)
-        if path[-1] in ("scale", "bias", "b_up", "b_down"):
+        if path[-1] in _PERTURBED:
             a = a + 0.1 * rng.standard_normal(a.shape).astype(a.dtype)
         return a
     return walk(tree)
@@ -76,15 +81,35 @@ def _close(got, ref, scale, rtol, what):
     assert err <= rtol * scale, f"{what}: err {err} > {rtol} * {scale}"
 
 
-@pytest.mark.parametrize("arch,overrides", SERVE_CASES,
-                         ids=[f"{a}-{'-'.join(o) or 'base'}"
-                              for a, o in SERVE_CASES])
-def test_prefill_decode_match_jax(arch, overrides):
+def _close_caches(pc, jc, what):
+    """Every leaf of every stage's cache: integer leaves (positions)
+    exactly, float leaves within 1e-4 of the leaf's max magnitude."""
+    assert len(pc) == len(jc)
+    for i, (p_stage, j_stage) in enumerate(zip(pc, jc)):
+        assert set(p_stage) == set(j_stage), (set(p_stage), set(j_stage))
+        for key, ref in j_stage.items():
+            ref = np.asarray(ref)
+            got = p_stage[key]
+            assert tuple(got.shape) == ref.shape, (key, got.shape, ref.shape)
+            if np.issubdtype(ref.dtype, np.integer):
+                np.testing.assert_array_equal(got.numpy(), ref)
+            else:
+                _close(got, ref, float(np.abs(ref).max()), 1e-4,
+                       f"{what} cache {i}.{key}")
+
+
+def _prompts(cfg, prompt):
+    return np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, prompt)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch,overrides,prompt", SERVE_CASES, ids=SERVE_IDS)
+def test_prefill_decode_match_jax(monkeypatch, arch, overrides, prompt):
+    monkeypatch.delenv("REPRO_USE_PALLAS", raising=False)
     jcfg, pcfg = _cfgs(arch, overrides)
     tree = _perturbed_params(jcfg, seed=0)
-    prompts = np.random.default_rng(1).integers(
-        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
-    max_len = PROMPT + STEPS + 1
+    prompts = _prompts(jcfg, prompt)
+    max_len = prompt + STEPS + 1
 
     jparams = jax.tree.map(jnp.asarray, tree)
     j_prefill = jax.jit(lambda p, t: JM.prefill(jcfg, p, t, max_len=max_len))
@@ -98,19 +123,14 @@ def test_prefill_decode_match_jax(arch, overrides):
                             max_len)
         scale = float(jnp.abs(jl).max())
         _close(pl, jl, scale, 1e-4, "prefill logits")
-        for key in ("k", "v"):
-            ref = np.asarray(jc[0][key])
-            _close(pc[0][key], ref, float(np.abs(ref).max()), 1e-4,
-                   f"cache {key}")
-        np.testing.assert_array_equal(pc[0]["pos"].numpy(),
-                                      np.asarray(jc[0]["pos"]))
+        _close_caches(pc, jc, "prefill")
 
         jtok = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
         ptok = pl[:, -1].argmax(-1)[:, None]
         greedy = [np.asarray(jtok)[:, 0]]
         for i in range(STEPS):
             np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
-            pos = PROMPT + i
+            pos = prompt + i
             jl, jc = j_decode(jparams, jc, jtok,
                               jnp.full((BATCH,), pos, jnp.int32))
             pl, pc = PM.decode_step(pcfg, params, pc, ptok,
@@ -121,14 +141,31 @@ def test_prefill_decode_match_jax(arch, overrides):
             ptok = pl[:, -1].argmax(-1)[:, None]
             greedy.append(np.asarray(jtok)[:, 0])
         np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
-        np.testing.assert_array_equal(pc[0]["pos"].numpy(),
-                                      np.asarray(jc[0]["pos"]))
+        _close_caches(pc, jc, "decode")
 
     # the entry point a user calls gives the same greedy tokens
     res = pt_serve.serve(pcfg, PM.DecoderLM(pcfg, params), prompts,
                          STEPS + 1, device="cpu")
     np.testing.assert_array_equal(res["tokens"].numpy(),
                                   np.stack(greedy, axis=1))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "llama-7b"])
+def test_prefill_matches_jax_pallas_interpret(monkeypatch, arch):
+    """The port's prefill logits against the JAX package running its
+    Pallas kernels in interpret mode (the SSD scan for mamba2, flash
+    attention for llama).  Caches are not compared: that path of the JAX
+    package leaves the SSM state zero (ROADMAP, reference quirks)."""
+    monkeypatch.setenv("REPRO_USE_PALLAS", "interpret")
+    jcfg, pcfg = _cfgs(arch, {})
+    tree = _perturbed_params(jcfg, seed=3)
+    prompts = _prompts(jcfg, 40)
+    jl, _ = JM.prefill(jcfg, jax.tree.map(jnp.asarray, tree),
+                       jnp.asarray(prompts), max_len=41)
+    with torch.inference_mode():
+        pl, _ = PM.prefill(pcfg, params_from_numpy(tree, "cpu"),
+                           torch.from_numpy(prompts).long(), 41)
+    _close(pl, jl, float(jnp.abs(jl).max()), 1e-4, "prefill logits")
 
 
 @pytest.mark.parametrize("arch", ["llama-7b", "gemma-2b"])
@@ -155,7 +192,7 @@ def test_embed_and_head_match(arch):
 def test_reduced_configs_identical():
     """The port's config copy reduces exactly as the JAX package's."""
     for name in ("llama-7b", "gemma-2b", "gpt-1.3b", "stablelm-1.6b",
-                 "tiny-llama", "bert-large"):
+                 "tiny-llama", "bert-large", "mamba2-370m"):
         j = dataclasses.asdict(jax_base.get_arch(name).reduced())
         p = dataclasses.asdict(pt_base.get_arch(name).reduced())
         for d in (j, p):
@@ -181,6 +218,56 @@ def test_model_holds_bf16_weights_fp32_norms():
     assert model.params is p
     assert p["stages"][0]["mlp"]["w_gate"] is names["tree.stages.0.mlp.w_gate"]
     assert not any(t.requires_grad for t in names.values())
+
+
+_SSM_FP32 = (("ln", "scale"), ("ssd", "gate_norm", "scale"), ("ssd", "a_log"),
+             ("ssd", "dt_bias"), ("ssd", "d_skip"), ("ssd", "conv_b"))
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def test_ssm_model_stores_fp32_leaves():
+    """A bf16 mamba2 keeps in fp32 every leaf the JAX package keeps and
+    uses in fp32, from ``init_params`` and from ``params_from_numpy``;
+    the matmul weights and the conv weight are bf16."""
+    cfg = dataclasses.replace(pt_base.get_arch("mamba2-370m").reduced(),
+                              dtype="bfloat16")
+    model = PM.DecoderLM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    jcfg = jax_base.get_arch("mamba2-370m").reduced()
+    loaded = params_from_numpy(_perturbed_params(jcfg, seed=0), "cpu",
+                               dtype=torch.bfloat16)
+    for params in (model.params, loaded):
+        stage = params["stages"][0]
+        assert stage["ssd"]["in_proj"].shape == (2, 256, 2 * 512 + 2 * 16
+                                                 + 512 // 32)
+        for path in _SSM_FP32:
+            assert _leaf(stage, path).dtype == torch.float32, path
+        for path in (("ssd", "in_proj"), ("ssd", "out_proj"),
+                     ("ssd", "conv_w")):
+            assert _leaf(stage, path).dtype == torch.bfloat16, path
+        assert params["final_norm"]["scale"].dtype == torch.float32
+        assert params["embed"].dtype == torch.bfloat16
+    caches = PM.init_cache(cfg, 3, 10, "cpu")
+    assert caches[0]["h"].shape == (2, 3, 16, 32, 16)
+    assert caches[0]["h"].dtype == torch.float32
+    assert caches[0]["conv"].shape == (2, 3, 3, 512 + 2 * 16)
+    assert caches[0]["conv"].dtype == torch.bfloat16
+
+
+def test_full_width_mamba2_tree():
+    """mamba2-370m at full width keeps the JAX tree and its 419,825,152
+    parameters (built on the meta device: shapes only, nothing drawn)."""
+    cfg = pt_base.get_arch("mamba2-370m")
+    assert [(s.kind, s.count) for s in PM.build_stages(cfg)] == [("ssm", 48)]
+    params = PM.init_params(cfg, None, "meta")
+    assert params["stages"][0]["ssd"]["in_proj"].shape == (48, 1024, 4384)
+    assert params["stages"][0]["ssd"]["out_proj"].shape == (48, 2048, 1024)
+    assert params["stages"][0]["ssd"]["conv_w"].shape == (48, 4, 2304)
+    assert PM.param_count(params) == 419_825_152
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,220 @@
+"""The port's SSD scan: its plain version against the JAX package's Pallas
+kernel (interpret mode) and oracles on the CPU, and the CUDA kernel against
+the plain version on the card (skipped without one).
+
+JAX is imported only by the tests that need it, so that the CUDA tests
+also run on a machine with PyTorch and no JAX:
+``python -m pytest tests/test_torch_ssd_scan.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
+
+# the cases of tests/test_kernels.py::SSD_CASES
+SSD_CASES = [
+    # b, h, l, p, n, chunk (the JAX kernel's tile; the port's is fixed)
+    (2, 4, 128, 32, 16, 32),
+    (1, 2, 96, 64, 32, 32),    # pad path in JAX, ragged L in the kernel
+    (2, 4, 256, 32, 64, 64),
+    (1, 8, 64, 64, 128, 16),   # mamba2-370m-like head geometry
+]
+CASE_IDS = ["base", "ragged", "n64", "mamba2-like"]
+
+
+def _inputs(b, h, l, p, n, seed=0, slow=False):
+    """fp32 numpy x (B,H,L,P), dt (B,H,L), a (H,), b/c (B,L,N), drawn as
+    ``tests/test_kernels.py`` draws them; ``slow`` makes the decay slow, so
+    the state carries across many chunks."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, l, p)).astype(np.float32)
+    z = rng.standard_normal((b, h, l)).astype(np.float32)
+    if slow:
+        dt = np.log1p(np.exp(z - 4.0))
+        a = -np.exp(np.linspace(-3.0, 0.0, h))
+    else:
+        dt = np.log1p(np.exp(z))
+        a = -np.exp(np.linspace(0.0, 1.5, h))
+    bm = rng.standard_normal((b, l, n)).astype(np.float32)
+    cm = rng.standard_normal((b, l, n)).astype(np.float32)
+    return x, dt.astype(np.float32), a.astype(np.float32), bm, cm
+
+
+def _rel(got, ref):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("b,h,l,p,n,chunk", SSD_CASES, ids=CASE_IDS)
+def test_plain_matches_pallas_and_oracle(b, h, l, p, n, chunk):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ssd_scan.ops import ssd_scan as jax_scan
+    from repro.kernels.ssd_scan.ref import ssd_reference as jax_oracle
+    arrs = _inputs(b, h, l, p, n)
+    pallas = np.asarray(jax_scan(*(jnp.asarray(v) for v in arrs),
+                                 chunk=chunk, interpret=True))
+    oracle = np.asarray(jax_oracle(*(jnp.asarray(v) for v in arrs)))
+    before = ops.LAUNCHES
+    y, h_final = ops.ssd_scan(*(torch.from_numpy(v) for v in arrs))
+    assert ops.LAUNCHES == before          # CPU tensors: plain version
+    assert y.dtype == torch.float32 and y.shape == (b, h, l, p)
+    assert h_final.dtype == torch.float32 and h_final.shape == (b, h, p, n)
+    assert _rel(y, pallas) < 1e-4          # chunked vs sequential sums
+    assert _rel(y, oracle) < 1e-5          # both sequential
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("b,h,l,p,n,chunk", SSD_CASES, ids=CASE_IDS)
+def test_final_state_matches_jax_reference(b, h, l, p, n, chunk, with_h0):
+    """h_final against the state ``models.layers.ssd.ssd_reference``
+    returns, from zero or from a given state, with slow decay so that early
+    positions (and the initial state) still count."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.models.layers.ssd import ssd_reference as jax_layer_ref
+    x, dt, a, bm, cm = _inputs(b, h, l, p, n, seed=1, slow=True)
+    h0 = np.random.default_rng(4).standard_normal((b, h, p, n)).astype(
+        np.float32) if with_h0 else None
+    y_ref, h_ref = jax_layer_ref(jnp.asarray(x.transpose(0, 2, 1, 3)),
+                                 jnp.asarray(dt.transpose(0, 2, 1)),
+                                 jnp.asarray(a), jnp.asarray(bm),
+                                 jnp.asarray(cm),
+                                 h0=None if h0 is None else jnp.asarray(h0))
+    y, h_final = ops.ssd_scan(*(torch.from_numpy(v)
+                                for v in (x, dt, a, bm, cm)),
+                              h0=None if h0 is None else torch.from_numpy(h0))
+    assert _rel(h_final, h_ref) < 1e-5
+    assert _rel(y.transpose(1, 2), y_ref) < 1e-5
+
+
+def test_strided_views_match_contiguous():
+    """ssd_apply hands the wrapper column slices of the conv output and a
+    transposed dt."""
+    b, h, l, p, n = 2, 4, 40, 32, 16
+    x, dt, a, bm, cm = _inputs(b, h, l, p, n, seed=2)
+    xbc = np.concatenate([x.transpose(0, 2, 1, 3).reshape(b, l, h * p), bm,
+                          cm], axis=-1)
+    xbc = torch.from_numpy(np.ascontiguousarray(xbc))
+    xv = xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2)
+    dtv = torch.from_numpy(np.ascontiguousarray(dt.transpose(0, 2, 1)))
+    dtv = dtv.transpose(1, 2)
+    views = (xv, dtv, torch.from_numpy(a), xbc[..., h * p: h * p + n],
+             xbc[..., h * p + n:])
+    assert not views[0].is_contiguous() and not views[1].is_contiguous()
+    got = ops.ssd_scan(*views)
+    ref = ops.ssd_scan(*(torch.from_numpy(v) for v in (x, dt, a, bm, cm)))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ({"x_dtype": torch.float16}, TypeError),
+    ({"b_dtype": torch.bfloat16}, TypeError),     # x and b differ
+    ({"dt_dtype": torch.bfloat16}, TypeError),
+    ({"a_dtype": torch.float64}, TypeError),
+    ({"p": 48}, ValueError),
+    ({"n": 24}, ValueError),
+    ({"stride": "x"}, ValueError),
+    ({"stride": "c"}, ValueError),
+    ({"l": 0}, ValueError),
+    ({"h0": "shape"}, ValueError),
+    ({"h0": "dtype"}, TypeError),
+    ({"h0": "stride"}, ValueError),
+])
+def test_kernel_checks_refuse(bad, err):
+    """What the CUDA kernel does not take is refused before a launch."""
+    b, h, l = 1, 2, bad.get("l", 8)
+    p, n = bad.get("p", 32), bad.get("n", 16)
+    x = torch.zeros(b, h, l, p, dtype=bad.get("x_dtype", torch.float32))
+    if bad.get("stride") == "x":
+        x = torch.zeros(b, h, p, l).transpose(2, 3)
+    dt = torch.zeros(b, h, l, dtype=bad.get("dt_dtype", torch.float32))
+    a = torch.zeros(h, dtype=bad.get("a_dtype", torch.float32))
+    bm = torch.zeros(b, l, n, dtype=bad.get("b_dtype", torch.float32))
+    cm = torch.zeros(b, l, n)
+    if bad.get("stride") == "c":
+        cm = torch.zeros(b, n, l).transpose(1, 2)
+    h0 = {"shape": torch.zeros(b, h, p, n + 1),
+          "dtype": torch.zeros(b, h, p, n, dtype=torch.bfloat16),
+          "stride": torch.zeros(b, h, n, p).transpose(2, 3)}.get(bad.get("h0"))
+    with pytest.raises(err):
+        ops._check(x, dt, a, bm, cm, h0)
+
+
+def test_build_finds_the_kernel_source():
+    src = build.sources()["ssd_scan"]
+    text = src.read_text()
+    assert text.startswith("// Mamba2 SSD chunked scan")
+    assert "src/repro/kernels/ssd_scan/ssd_scan.py:72" in text
+    assert build._lib_path(src).parent == build.BUILD_DIR
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check_close(got, ref, rtol):
+    """Elementwise |got - ref| <= 1e-4 max|ref| + rtol |ref|: fp32 sums in
+    another order, plus one bf16 rounding step where the output is bf16."""
+    got, ref = got.float(), ref.float()
+    bound = 1e-4 * ref.abs().max() + rtol * ref.abs()
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,l,p,n,chunk", SSD_CASES, ids=CASE_IDS)
+def test_cuda_kernel_matches_plain(cuda, b, h, l, p, n, chunk, dtype):
+    x, dt, a, bm, cm = (torch.from_numpy(v).to(cuda)
+                        for v in _inputs(b, h, l, p, n, slow=True))
+    x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
+    before = ops.LAUNCHES
+    y, h_final = ops.ssd_scan(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert y.dtype == dtype and h_final.dtype == torch.float32
+    y_ref, h_ref = ssd_scan_reference(x, dt, a, bm, cm)
+    _check_close(y, y_ref, 1e-2 if dtype == torch.bfloat16 else 0.0)
+    _check_close(h_final, h_ref, 0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_reads_strided_views(cuda):
+    b, h, l, p, n = 2, 4, 200, 64, 128
+    x, dt, a, bm, cm = _inputs(b, h, l, p, n, seed=3, slow=True)
+    xbc = np.concatenate([x.transpose(0, 2, 1, 3).reshape(b, l, h * p), bm,
+                          cm], axis=-1)
+    xbc = torch.from_numpy(np.ascontiguousarray(xbc)).to(cuda)
+    dtv = torch.from_numpy(np.ascontiguousarray(dt.transpose(0, 2, 1)))
+    views = (xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2),
+             dtv.to(cuda).transpose(1, 2), torch.from_numpy(a).to(cuda),
+             xbc[..., h * p: h * p + n], xbc[..., h * p + n:])
+    y, h_final = ops.ssd_scan(*views)
+    y_ref, h_ref = ssd_scan_reference(*views)
+    _check_close(y, y_ref, 0.0)
+    _check_close(h_final, h_ref, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_starts_from_initial_state(cuda, dtype):
+    b, h, l, p, n = 2, 4, 100, 64, 128
+    x, dt, a, bm, cm = (torch.from_numpy(v).to(cuda)
+                        for v in _inputs(b, h, l, p, n, seed=5, slow=True))
+    x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
+    h0 = torch.randn(b, h, p, n, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5))
+    y, h_final = ops.ssd_scan(x, dt, a, bm, cm, h0)
+    y_ref, h_ref = ssd_scan_reference(x, dt, a, bm, cm, h0)
+    _check_close(y, y_ref, 1e-2 if dtype == torch.bfloat16 else 0.0)
+    _check_close(h_final, h_ref, 0.0)
