@@ -9,16 +9,21 @@ Phases, each printing one JSON line:
              CUDA the script exits 2;
 2. build   — the CUDA kernels from the sources in this checkout (``nvcc``,
              one process per source, all at once);
-3. kernel  — the flash attention kernel against its plain PyTorch version on
-             the card: the cases of ``tests/test_kernels.py`` in fp32 (TF32
-             off, |err| <= 2e-5) and bf16 (|err| <= 1e-3 + 1e-2 |plain|,
-             about one bf16 rounding step), the serving shape (contiguous
-             and as the transposed views the model passes) and a GQA shape;
-             times of kernel, plain version and SDPA at the serving shape,
-             beside the least time the card could take;
+3. kernel  — the flash attention kernels against their plain PyTorch
+             version on the card: the cases of ``tests/test_kernels.py``, a
+             GQA shape, the head dims of llama-3b (100), vit-g (104,
+             non-causal, ragged S 257) and gemma-2b (256, MQA) and a ragged
+             Sq = Sk = 1000 at the serving widths, in fp32 (the FMA kernel;
+             TF32 off, |err| <= 2e-5) and bf16 (the tensor-core kernel;
+             |err| <= 1e-3 + 1e-2 |plain|, about one bf16 rounding step);
+             the serving shape (contiguous and as the transposed views the
+             model passes); the count of HMMA/HGMMA instructions in each
+             kernel's SASS (``cuobjdump``); times of kernel, plain version
+             and SDPA at the serving shape, beside the least time the card
+             could take;
 4. serve   — ``launch.serve.serve`` on llama-7b at full width (bf16, random
              weights from a seed): batch 8, prompt 512, 32 generated tokens;
-             the prefill must launch the kernel once per layer;
+             the prefill must launch the bf16 kernel once per layer;
 5. ssd_kernel — the SSD scan kernel against its plain version on the card,
              y and final state: the cases of ``tests/test_kernels.py`` and a
              ragged L with slow decay, from zero and from a given initial
@@ -49,6 +54,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +96,14 @@ FLASH_CASES = [
 ]
 SERVE_SHAPE = (8, 32, 32, 512, 512, 128, True, 0, 0.0)     # llama-7b prefill
 GQA_SHAPE = (2, 32, 4, 512, 512, 64, True, 0, 0.0)         # tiny-llama heads
+# the other head dims of the configs, and a ragged length at the serving
+# widths
+HEAD_DIM_CASES = {
+    "llama-3b-d100": (2, 32, 32, 512, 512, 100, True, 0, 0.0),
+    "vit-g-d104": (2, 16, 16, 257, 257, 104, False, 0, 0.0),
+    "gemma-2b-d256": (2, 8, 1, 512, 512, 256, True, 0, 0.0),
+    "ragged-1000": (2, 32, 32, 1000, 1000, 128, True, 0, 0.0),
+}
 # |kernel - plain| <= atol + rtol * |plain|, elementwise.  Both compute in
 # fp32 and round once to the output dtype, so in bf16 they differ by at most
 # one rounding step (<= 2**-7 of the value) plus fp32 noise near zero.
@@ -132,10 +147,27 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name in build.sources():
         build.load(name)
-    usage = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": secs, "built": sorted(logs),
-          "ptxas": usage})
+          "ptxas": _ptxas_usage(logs)})
+
+
+def _ptxas_usage(logs: dict) -> dict:
+    """Kernel instance → its registers and spills, from ``-Xptxas -v``."""
+    usage: dict = {}
+    func = None
+    for log in logs.values():
+        for line in log.splitlines():
+            hit = re.search(r"Compiling entry function '(\S+)'", line)
+            if hit:
+                m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel)I"
+                              r"(\w+?)EEv", hit[1])
+                func = f"{m[1]}<{m[2]}>" if m else hit[1]
+                usage[func] = ""
+            elif func is not None and ("registers" in line or
+                                       "spill" in line):
+                usage[func] = (usage[func] + " " + line.split(":")[-1]
+                               .strip()).strip()
+    return usage
 
 
 def _qkv(case, dtype, seed=0):
@@ -202,16 +234,52 @@ def _bound(case, dtype):
                                  else "operations"), nbytes, flops
 
 
+def _sass_counts(name: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel
+    function of library ``name``, summed by function name prefix; None
+    where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    lib = build._lib_path(build.sources()[name])
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts: dict = {}
+    func = None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel)I", hit[1])
+            func = m[1] if m else hit[1][:40]
+            counts.setdefault(func, {"HMMA": 0, "HGMMA": 0})
+        elif func is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[func][op] += 1
+                    break
+    return counts
+
+
 def phase_kernel() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sass = _sass_counts("flash_attention")
+    if sass is not None:
+        tc = sass.get("flash_fwd_kernel_mma", {})
+        if tc.get("HMMA", 0) + tc.get("HGMMA", 0) == 0:
+            raise AssertionError(f"bf16 flash kernel: no tensor-core "
+                                 f"instructions in its SASS: {sass}")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
         for i, case in enumerate(FLASH_CASES):
-            errs[f"case{i}-{str(dtype)[6:]}"] = _compare(case, dtype)
-        errs[f"gqa-{str(dtype)[6:]}"] = _compare(GQA_SHAPE, dtype)
-        errs[f"views-{str(dtype)[6:]}"] = _compare(FLASH_CASES[7], dtype,
-                                                   views=True)
+            errs[f"case{i}-{tag}"] = _compare(case, dtype)
+        errs[f"gqa-{tag}"] = _compare(GQA_SHAPE, dtype)
+        errs[f"views-{tag}"] = _compare(FLASH_CASES[7], dtype, views=True)
+        for name, case in HEAD_DIM_CASES.items():
+            errs[f"{name}-{tag}"] = _compare(case, dtype)
+        errs[f"views-d100-{tag}"] = _compare(HEAD_DIM_CASES["llama-3b-d100"],
+                                             dtype, views=True)
     dtype = torch.bfloat16
     serve_err = max(_compare(SERVE_SHAPE, dtype),
                     _compare(SERVE_SHAPE, dtype, views=True))
@@ -227,16 +295,17 @@ def phase_kernel() -> dict:
     kernel_ms_2 = _time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
                            20)
     bound_ms, bound_by, nbytes, flops = _bound(SERVE_SHAPE, dtype)
-    res = {"phase": "kernel", "max_abs_err": errs, "shape": SERVE_SHAPE,
-           "dtype": "bfloat16", "kernel_ms": kernel_ms,
+    res = {"phase": "kernel", "max_abs_err": errs, "sass": sass,
+           "shape": SERVE_SHAPE, "dtype": "bfloat16",
+           "variant": flash_ops.VARIANTS[dtype], "kernel_ms": kernel_ms,
            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
            "kernel_tflops": flops / kernel_ms / 1e9}
     emit(res)
-    return {"max_abs_err": serve_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return {"variant": flash_ops.VARIANTS[dtype], "max_abs_err": serve_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _ssd_inputs(shape, dtype, seed=0, slow=False):
@@ -383,13 +452,20 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     torch.cuda.reset_peak_memory_stats()
     for ops in KERNEL_OPS.values():
         ops.LAUNCHES = 0
+    flash_ops.VARIANT_LAUNCHES.update(dict.fromkeys(
+        flash_ops.VARIANT_LAUNCHES, 0))
     res = serve(cfg, model, prompts, gen, "cuda")
     launches = {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
+    variants = {k: n for k, n in flash_ops.VARIANT_LAUNCHES.items() if n}
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
     if launches != expect:
         raise AssertionError(f"{arch}: kernel launches {launches}, "
                              f"expected {expect}")
+    if expect["flash_attention"] and variants != {
+            flash_ops.VARIANTS[torch.bfloat16]: expect["flash_attention"]}:
+        raise AssertionError(f"{arch}: flash launches by variant "
+                             f"{variants}, expected all bf16-mma")
     if tuple(toks.shape) != (batch, gen) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
@@ -402,7 +478,8 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_s": res["decode_s"],
           "decode_tok_s": res["decode_tok_s"], "peak_mem_gib": peak / 2**30,
-          "kernel_launches": launches, "tokens_seq0": toks[0].tolist()})
+          "kernel_launches": launches, "flash_variants": variants,
+          "tokens_seq0": toks[0].tolist()})
     del model, res
     torch.cuda.empty_cache()
     return launches

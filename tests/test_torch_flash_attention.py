@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_arch, list_archs
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -26,9 +27,22 @@ FLASH_CASES = [
     (2, 4, 4, 64, 64, 64, False, 0, 0.0),        # non-causal (encoders)
     (1, 2, 2, 64, 192, 32, True, 0, 0.0),        # cross lengths
     (2, 4, 4, 128, 128, 128, True, 32, 50.0),    # everything at once
+    (1, 2, 2, 96, 96, 100, True, 0, 0.0),        # llama-3b's head dim
+    (1, 2, 2, 65, 65, 104, False, 0, 0.0),       # vit-g's, ragged edge
 ]
 CASE_IDS = ["mha", "gqa", "mqa-ragged", "window", "softcap", "noncausal",
-            "cross", "all"]
+            "cross", "all", "d100", "d104-ragged"]
+# what only the card runs: gemma-2b's MQA head of 256, vit-e's 112, a
+# ragged length past one tile of 64 rows
+CUDA_CASES = FLASH_CASES + [
+    (1, 8, 1, 128, 128, 256, True, 0, 0.0),
+    (1, 4, 4, 96, 96, 112, False, 0, 0.0),
+    (1, 4, 4, 200, 200, 128, True, 0, 0.0),
+]
+CUDA_IDS = CASE_IDS + ["d256-mqa", "d112", "ragged-200"]
+# |kernel - plain| <= atol + rtol |plain|: fp32 sum-order noise; in bf16,
+# one rounding step of the output on top (both round one fp32 result)
+TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-3, 1e-2)}
 
 
 def _qkv(b, h, kvh, sq, sk, d, seed=0):
@@ -75,19 +89,50 @@ def test_strided_views_match_contiguous():
 
 @pytest.mark.parametrize("bad,err", [
     ({"dtype": torch.float16}, TypeError),
-    ({"d": 48}, ValueError),
+    ({"d": 50}, ValueError),
     ({"kvh": 3}, ValueError),
     ({"stride": True}, ValueError),
+    ({"d": 264}, ValueError),
+    ({"misaligned": True, "dtype": torch.bfloat16}, ValueError),
 ])
 def test_kernel_checks_refuse(bad, err):
-    """What the CUDA kernel does not take is refused before a launch."""
+    """What the CUDA kernels do not take is refused before a launch."""
     d, kvh = bad.get("d", 64), bad.get("kvh", 2)
     dtype = bad.get("dtype", torch.float32)
     q = torch.zeros(1, 4, 8, d, dtype=dtype)
     k = torch.zeros(1, kvh, 8, d, dtype=dtype)
     if bad.get("stride"):
         k = torch.zeros(1, kvh, d, 8, dtype=dtype).transpose(2, 3)
+    if bad.get("misaligned"):   # S stride 66: not a multiple of 4 elements
+        k = torch.zeros(1, kvh, 8, d + 2, dtype=dtype)[..., :d]
     with pytest.raises(err):
+        ops._check(q, k, k)
+
+
+def test_copy_width_follows_alignment():
+    """The bf16 kernel copies 16 B where D and every stride allow it, 8 B
+    where D is only a multiple of 4 (llama-3b's 100: 200 B rows)."""
+    def width(t):
+        return ops._check(t, t, t)[1]
+    bf = torch.bfloat16
+    assert width(torch.zeros(1, 2, 8, 128, dtype=bf)) == 8
+    assert width(torch.zeros(1, 2, 8, 100, dtype=bf)) == 4
+    assert width(torch.zeros(1, 8, 2, 104, dtype=bf).transpose(1, 2)) == 8
+    assert width(torch.zeros(1, 2, 8, 132, dtype=bf)[..., 4:]) == 4
+    assert ops._check(*(torch.zeros(1, 2, 8, 100),) * 3)[1] == 1   # fp32
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if get_arch(a).n_heads])
+def test_check_takes_every_config_head_dim(arch):
+    """Every registered attention config's head dim passes the kernels'
+    checks, in both dtypes and as the model's transposed views."""
+    cfg = get_arch(arch)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 4, cfg.n_heads, cfg.head_dim,
+                        dtype=dtype).transpose(1, 2)
+        k = torch.zeros(1, 4, cfg.n_kv_heads, cfg.head_dim,
+                        dtype=dtype).transpose(1, 2)
         ops._check(q, k, k)
 
 
@@ -112,16 +157,19 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,softcap",
-                         FLASH_CASES, ids=CASE_IDS)
+                         CUDA_CASES, ids=CUDA_IDS)
 def test_cuda_kernel_matches_plain(cuda, b, h, kvh, sq, sk, d, causal,
                                    window, softcap, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                for a in _qkv(b, h, kvh, sq, sk, d))
     kw = dict(causal=causal, window=window, softcap=softcap)
     before = ops.LAUNCHES
+    variant = ops.VARIANTS[dtype]
+    before_variant = ops.VARIANT_LAUNCHES[variant]
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
-    ref = attention_reference(q, k, v, **kw)
-    tol = 5e-2 if dtype == torch.bfloat16 else 2e-5
-    assert (got.float() - ref.float()).abs().max().item() < tol
+    assert ops.VARIANT_LAUNCHES[variant] == before_variant + 1
+    ref = attention_reference(q, k, v, **kw).float()
+    atol, rtol = TOL[dtype]
+    assert ((got.float() - ref).abs() <= atol + rtol * ref.abs()).all()
