@@ -24,18 +24,22 @@ Phases, each printing one JSON line:
 4. serve   — ``launch.serve.serve`` on llama-7b at full width (bf16, random
              weights from a seed): batch 8, prompt 512, 32 generated tokens;
              the prefill must launch the bf16 kernel once per layer;
-5. ssd_kernel — the SSD scan kernel against its plain version on the card,
-             y and final state: the cases of ``tests/test_kernels.py`` and a
-             ragged L with slow decay, from zero and from a given initial
-             state, in fp32 (|err| <= 1e-4 max|plain|)
-             and bf16 (y: |err| <= 1e-4 max|plain| + 1e-2 |plain|), and
-             the serving shape in bf16 as the strided views the model
-             passes; times of kernel and plain version at the serving
-             shape beside the least time the card could take;
+5. ssd_kernel — the SSD scan kernels against their plain version on the
+             card, y and final state: the cases of ``tests/test_kernels.py``
+             and a ragged L with slow decay, from zero and from a given
+             initial state, in fp32 (the FMA kernel; |err| <= 1e-4
+             max|plain|) and bf16 (the tensor-core kernel; y: |err| <= 1e-4
+             max|plain| + 1e-2 |plain|), the serving shape and a ragged
+             L 1025 in bf16 as the strided views the model passes, and views
+             whose pointers or strides allow only 8, 4 or 2 B copies; the
+             HMMA count of the bf16 kernel's SASS (it fails at 0) and both
+             kernels' registers and spills; times of kernel and plain
+             version at the serving shape beside the least time the card
+             could take;
 6. serve_mamba2 — ``launch.serve.serve`` on mamba2-370m at full width
              (bf16, random weights from a seed): batch 8, prompt 2048, 32
-             generated tokens; the prefill must launch the SSD kernel once
-             per layer and the flash kernel never;
+             generated tokens; the prefill must launch the bf16 SSD kernel
+             once per layer and the flash kernel never;
 7. consistency — fp32, TF32 off, full width, for llama-7b and mamba2-370m:
              the last logits of a prefill of S+1 tokens against a prefill
              of S tokens and one decode step (the kernel path against the
@@ -120,7 +124,12 @@ SSD_CASES = [
 ]
 SSD_RAGGED = (2, 4, 1000, 64, 128)   # slow decay: the state crosses chunks
 SSD_Q = 64                           # the kernel's tile length
+# copy widths (elements) of the bf16 kernel below 16 B: views of a
+# (B, L, H P + 2 N + off) tensor shifted by off elements
+SSD_VEC_VIEWS = {4: (2, 4, 200, 64, 128), 2: (2, 4, 200, 32, 64),
+                 1: (1, 4, 130, 64, 32)}
 KERNEL_OPS = {"flash_attention": flash_ops, "ssd_scan": ssd_ops}
+PTXAS: dict = {}    # kernel instance -> registers and spills (phase build)
 MAMBA = "mamba2-370m"
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN = 8, 2048, 32
 
@@ -147,8 +156,9 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name in build.sources():
         build.load(name)
+    PTXAS.update(_ptxas_usage(logs))
     emit({"phase": "build", "seconds": secs, "built": sorted(logs),
-          "ptxas": _ptxas_usage(logs)})
+          "ptxas": PTXAS})
 
 
 def _ptxas_usage(logs: dict) -> dict:
@@ -159,8 +169,8 @@ def _ptxas_usage(logs: dict) -> dict:
         for line in log.splitlines():
             hit = re.search(r"Compiling entry function '(\S+)'", line)
             if hit:
-                m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel)I"
-                              r"(\w+?)EEv", hit[1])
+                m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel\w*?)"
+                              r"I(\w+?)EEv", hit[1])
                 func = f"{m[1]}<{m[2]}>" if m else hit[1]
                 usage[func] = ""
             elif func is not None and ("registers" in line or
@@ -249,7 +259,8 @@ def _sass_counts(name: str) -> dict:
     for line in sass.splitlines():
         hit = re.search(r"Function : (\S+)", line)
         if hit:
-            m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel)I", hit[1])
+            m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel\w*?)I",
+                          hit[1])
             func = m[1] if m else hit[1][:40]
             counts.setdefault(func, {"HMMA": 0, "HGMMA": 0})
         elif func is not None:
@@ -327,15 +338,17 @@ def _ssd_inputs(shape, dtype, seed=0, slow=False):
     return x, dt, a, mk(b, l, n).to(dtype), mk(b, l, n).to(dtype)
 
 
-def _ssd_model_views(shape, seed=0):
+def _ssd_model_views(shape, seed=0, off=0):
     """The serving shape as ``ssd_apply`` passes it: x, b, c column slices
     of one (B, L, d_inner + 2N) bf16 conv output, dt a transposed
-    (B, L, H) fp32 tensor, mamba2's own a and dt bias."""
+    (B, L, H) fp32 tensor, mamba2's own a and dt bias.  ``off`` > 0
+    widens the conv output by ``off`` columns and starts the slices
+    there, so pointers and strides are multiples of ``off`` elements."""
     b, h, l, p, n = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     di = h * p
-    xbc = torch.randn(b, l, di + 2 * n, generator=g,
-                      device="cuda").to(torch.bfloat16)
+    xbc = torch.randn(b, l, di + 2 * n + off, generator=g,
+                      device="cuda").to(torch.bfloat16)[..., off:]
     dt_bias = torch.empty(h, device="cuda").uniform_(-4.0, -1.0,
                                                      generator=g)
     dt = F.softplus(torch.randn(b, l, h, generator=g, device="cuda")
@@ -395,6 +408,11 @@ def _ssd_bound(shape, dtype):
 def phase_ssd_kernel() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sass = _sass_counts("ssd_scan")
+    if sass is not None and \
+            sass.get("ssd_scan_kernel_mma", {}).get("HMMA", 0) == 0:
+        raise AssertionError(f"bf16 SSD kernel: no HMMA instructions in its "
+                             f"SASS: {sass}")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
@@ -419,21 +437,33 @@ def phase_ssd_kernel() -> dict:
     ragged = (shape[0], shape[1], 1025) + shape[3:]
     errs["serve-ragged-views-bfloat16"] = _ssd_compare(
         f"{ragged} views", _ssd_model_views(ragged, seed=1))[1]
+    for vec, case in SSD_VEC_VIEWS.items():
+        x, dt, a, b, c = _ssd_model_views(case, seed=4, off=vec)
+        got = ssd_ops._copy_width(x, b, c)
+        if got != vec:
+            raise AssertionError(f"views shifted by {vec}: copy width {got}")
+        errs[f"views-vec{vec}-bfloat16"] = _ssd_compare(
+            f"{case} views, {vec}-element copies", (x, dt, a, b, c))[1]
 
     kernel_ms = _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20)
     plain_ms = _time_ms(lambda: ssd_scan_reference(*inputs), 3, warmup=1)
     kernel_ms_2 = _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20)
     bound_ms, bound_by, nbytes, flops = _ssd_bound(shape, torch.bfloat16)
+    variant = ssd_ops.VARIANTS[torch.bfloat16]
     emit({"phase": "ssd_kernel", "max_rel_err": errs,
           "serve_max_abs_err": serve_err, "shape": shape,
-          "dtype": "bfloat16", "kernel_ms": kernel_ms,
+          "dtype": "bfloat16", "variant": variant, "sass": sass,
+          "ptxas": {k: v for k, v in PTXAS.items()
+                    if k.startswith("ssd_scan")},
+          "kernel_ms": kernel_ms,
           "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
           "library_ms": None,
           "library_note": "no single PyTorch call computes the SSD scan",
           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
           "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9})
-    return {"max_abs_err": serve_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"variant": variant, "max_abs_err": serve_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase_serve(arch: str, batch: int, prompt: int, gen: int,
@@ -452,20 +482,22 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     torch.cuda.reset_peak_memory_stats()
     for ops in KERNEL_OPS.values():
         ops.LAUNCHES = 0
-    flash_ops.VARIANT_LAUNCHES.update(dict.fromkeys(
-        flash_ops.VARIANT_LAUNCHES, 0))
+        ops.VARIANT_LAUNCHES.update(dict.fromkeys(ops.VARIANT_LAUNCHES, 0))
     res = serve(cfg, model, prompts, gen, "cuda")
     launches = {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
-    variants = {k: n for k, n in flash_ops.VARIANT_LAUNCHES.items() if n}
+    variants = {name: {k: n for k, n in ops.VARIANT_LAUNCHES.items() if n}
+                for name, ops in KERNEL_OPS.items()}
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
     if launches != expect:
         raise AssertionError(f"{arch}: kernel launches {launches}, "
                              f"expected {expect}")
-    if expect["flash_attention"] and variants != {
-            flash_ops.VARIANTS[torch.bfloat16]: expect["flash_attention"]}:
-        raise AssertionError(f"{arch}: flash launches by variant "
-                             f"{variants}, expected all bf16-mma")
+    for name, ops in KERNEL_OPS.items():
+        want = {ops.VARIANTS[torch.bfloat16]: expect[name]} \
+            if expect[name] else {}
+        if variants[name] != want:
+            raise AssertionError(f"{arch}: {name} launches by variant "
+                                 f"{variants[name]}, expected {want}")
     if tuple(toks.shape) != (batch, gen) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
@@ -478,7 +510,7 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_s": res["decode_s"],
           "decode_tok_s": res["decode_tok_s"], "peak_mem_gib": peak / 2**30,
-          "kernel_launches": launches, "flash_variants": variants,
+          "kernel_launches": launches, "variants": variants,
           "tokens_seq0": toks[0].tolist()})
     del model, res
     torch.cuda.empty_cache()

@@ -1,12 +1,15 @@
 """Public wrapper around the CUDA SSD scan kernel.
 
 The device of the tensors picks the path, with no option: CPU tensors go
-to the plain PyTorch version (:mod:`.ref`), CUDA tensors launch the kernel
-in ``csrc/ssd_scan.cu`` or raise on what it does not take.  There is no
-fallback from the kernel to the plain version.  The kernel masks a ragged
-L itself, so unlike the TPU wrapper nothing is padded; it reads through
-the strides it is given, so the column slices and transposed views that
-``models.layers.ssd.ssd_apply`` passes are not copied.
+to the plain PyTorch version (:mod:`.ref`), CUDA tensors launch a kernel
+of ``csrc/ssd_scan.cu`` or raise on what it does not take.  There is no
+fallback from a kernel to the plain version.  The dtype picks the kernel:
+bf16 runs on tensor cores (``bf16-mma``), fp32 on scalar FMAs
+(``fp32-fma``); both take the same shapes and strides.  The kernels mask
+a ragged L themselves, so unlike the TPU wrapper nothing is padded; they
+read through the strides they are given, so the column slices and
+transposed views that ``models.layers.ssd.ssd_apply`` passes are not
+copied.
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
 
-#: Launches of the CUDA kernel (not of the plain version) since import or
+#: Launches of the CUDA kernels (not of the plain version) since import or
 #: since a caller last reset it.
 LAUNCHES = 0
+#: The same launches by kernel variant.
+VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
 
 HEAD_DIMS = (32, 64)               # P instantiated in the kernel
 STATE_DIMS = (16, 32, 64, 128)     # N instantiated in the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}
 _FN = None
 
 
@@ -35,9 +41,27 @@ def _kernel_fn():
         fn = build.load("ssd_scan").ssd_scan_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 13
+                       + [ctypes.c_int, ctypes.c_void_p])
         _FN = fn
     return _FN
+
+
+def _copy_width(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> int:
+    """Elements per copy of the bf16 kernel's staging: the largest of 8
+    (16 B), 4, 2 that divides the data pointers of x, b, c and their
+    B/H/L strides, else 1 (plain loads).  The model's views (column slices
+    of one (B, L, d_inner + 2N) tensor) take 8."""
+    bits = 0
+    for t, strides in ((x, x.stride()[:3]), (b, b.stride()[:2]),
+                       (c, c.stride()[:2])):
+        bits |= t.data_ptr() // t.element_size()
+        for s in strides:
+            bits |= s
+    for vec in (8, 4, 2):
+        if bits % vec == 0:
+            return vec
+    return 1
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -120,6 +144,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     device=x.device).transpose(1, 2)
     h_final = torch.empty((bsz, h, p, n), dtype=torch.float32,
                           device=x.device)
+    vec = _copy_width(x, b, c) if x.dtype == torch.bfloat16 else 1
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -128,8 +153,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 y.data_ptr(), h_final.data_ptr(),
                 _DTYPES[x.dtype], bsz, h, l, p, n,
                 *x.stride()[:3], *dt.stride(), b.stride(0), b.stride(1),
-                c.stride(0), c.stride(1), *y.stride()[:3], stream)
+                c.stride(0), c.stride(1), *y.stride()[:3], vec, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[VARIANTS[x.dtype]] += 1
     return y, h_final

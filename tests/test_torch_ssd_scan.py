@@ -151,7 +151,55 @@ def test_build_finds_the_kernel_source():
     text = src.read_text()
     assert text.startswith("// Mamba2 SSD chunked scan")
     assert "src/repro/kernels/ssd_scan/ssd_scan.py:72" in text
+    assert "ssd_scan_kernel_mma" in text
+    assert "mma.sync.aligned.m16n8k16" in text
     assert build._lib_path(src).parent == build.BUILD_DIR
+
+
+def test_dtype_picks_the_variant():
+    """bf16 goes to the tensor-core kernel, fp32 to the FMA kernel; every
+    variant has a launch count, and the CPU path moves none of them."""
+    assert ops.VARIANTS == {torch.float32: "fp32-fma",
+                            torch.bfloat16: "bf16-mma"}
+    assert set(ops.VARIANT_LAUNCHES) == set(ops.VARIANTS.values())
+    assert set(ops.VARIANTS) == set(ops._DTYPES)
+    before = dict(ops.VARIANT_LAUNCHES)
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(1, 2, 16, 32, 16))
+    for dtype in ops.VARIANTS:
+        ops.ssd_scan(x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype))
+    assert ops.VARIANT_LAUNCHES == before
+
+
+def _shifted_views(b, h, l, p, n, off, dtype=torch.bfloat16, xbc=None):
+    """x, b, c as column slices of a (B, L, H P + 2 N + off) tensor (zeros,
+    or ``xbc``) that start ``off`` elements in, as ``ssd_apply`` slices
+    the conv output."""
+    if xbc is None:
+        xbc = torch.zeros(b, l, h * p + 2 * n + off, dtype=dtype)
+    xbc = xbc[..., off:]
+    x = xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2)
+    return x, xbc[..., h * p: h * p + n], xbc[..., h * p + n:]
+
+
+@pytest.mark.parametrize("off,vec", [(0, 8), (8, 8), (4, 4), (12, 4),
+                                     (2, 2), (6, 2), (1, 1), (3, 1)])
+def test_copy_width_follows_pointers_and_strides(off, vec):
+    """16 B copies where x, b, c's pointers and strides allow them (the
+    serving views: off 0), else 8, 4 or 2 B, else plain loads."""
+    x, bm, cm = _shifted_views(2, 4, 8, 64, 128, off)
+    assert ops._copy_width(x, bm, cm) == vec
+
+
+@pytest.mark.parametrize("p,n,off", [(32, 16, 1), (64, 128, 3),
+                                     (32, 64, 2), (64, 32, 0)])
+def test_bf16_takes_what_fp32_takes(p, n, off):
+    """The bf16 kernel refuses nothing that the fp32 kernel takes: odd
+    strides and pointers included (they are staged by plain loads)."""
+    b, h, l = 2, 4, 8
+    dt, a = torch.zeros(b, h, l), torch.zeros(h)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, bm, cm = _shifted_views(b, h, l, p, n, off, dtype)
+        ops._check(x, dt, a, bm, cm)
 
 
 @pytest.fixture
@@ -179,9 +227,11 @@ def test_cuda_kernel_matches_plain(cuda, b, h, l, p, n, chunk, dtype):
                         for v in _inputs(b, h, l, p, n, slow=True))
     x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
     before = ops.LAUNCHES
+    before_variant = ops.VARIANT_LAUNCHES[ops.VARIANTS[dtype]]
     y, h_final = ops.ssd_scan(x, dt, a, bm, cm)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
+    assert ops.VARIANT_LAUNCHES[ops.VARIANTS[dtype]] == before_variant + 1
     assert y.dtype == dtype and h_final.dtype == torch.float32
     y_ref, h_ref = ssd_scan_reference(x, dt, a, bm, cm)
     _check_close(y, y_ref, 1e-2 if dtype == torch.bfloat16 else 0.0)
@@ -217,4 +267,51 @@ def test_cuda_kernel_starts_from_initial_state(cuda, dtype):
     y, h_final = ops.ssd_scan(x, dt, a, bm, cm, h0)
     y_ref, h_ref = ssd_scan_reference(x, dt, a, bm, cm, h0)
     _check_close(y, y_ref, 1e-2 if dtype == torch.bfloat16 else 0.0)
+    _check_close(h_final, h_ref, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,with_h0", [(2048, False), (1025, False),
+                                       (1025, True)],
+                         ids=["serve-L", "ragged-1025", "ragged-1025-h0"])
+def test_cuda_bf16_kernel_at_serving_heads(cuda, l, with_h0):
+    """The tensor-core kernel at mamba2-370m's head geometry (P 64, N 128)
+    through the model's strided views, from zero or a given state."""
+    b, h, p, n = 2, 4, 64, 128
+    x, dt, a, bm, cm = _inputs(b, h, l, p, n, seed=6, slow=True)
+    xbc = np.concatenate([x.transpose(0, 2, 1, 3).reshape(b, l, h * p), bm,
+                          cm], axis=-1)
+    xbc = torch.from_numpy(np.ascontiguousarray(xbc)).to(cuda, torch.bfloat16)
+    dtv = torch.from_numpy(np.ascontiguousarray(dt.transpose(0, 2, 1)))
+    views = (xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2),
+             dtv.to(cuda).transpose(1, 2), torch.from_numpy(a).to(cuda),
+             xbc[..., h * p: h * p + n], xbc[..., h * p + n:])
+    h0 = torch.randn(b, h, p, n, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(6)) \
+        if with_h0 else None
+    assert ops._copy_width(views[0], views[3], views[4]) == 8
+    before = ops.VARIANT_LAUNCHES["bf16-mma"]
+    y, h_final = ops.ssd_scan(*views, h0)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["bf16-mma"] == before + 1
+    y_ref, h_ref = ssd_scan_reference(*views, h0)
+    _check_close(y, y_ref, 1e-2)
+    _check_close(h_final, h_ref, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [4, 2, 1])
+def test_cuda_bf16_kernel_narrow_copies(cuda, off):
+    """Views whose pointers and strides allow only 8, 4 or 2 B copies."""
+    b, h, l, p, n = 2, 4, 130, 64, 32
+    xbc = torch.randn(b, l, h * p + 2 * n + off, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(7))
+    x, bm, cm = _shifted_views(b, h, l, p, n, off,
+                               xbc=xbc.to(torch.bfloat16))
+    assert ops._copy_width(x, bm, cm) == off
+    _, dt, a, _, _ = _inputs(b, h, l, p, n, seed=7, slow=True)
+    dt, a = torch.from_numpy(dt).to(cuda), torch.from_numpy(a).to(cuda)
+    y, h_final = ops.ssd_scan(x, dt, a, bm, cm)
+    y_ref, h_ref = ssd_scan_reference(x, dt, a, bm, cm)
+    _check_close(y, y_ref, 1e-2)
     _check_close(h_final, h_ref, 0.0)
