@@ -45,10 +45,33 @@ Phases, each printing one JSON line:
              of S tokens and one decode step (the kernel path against the
              plain decode path), within 2e-3 of max|logits|; and each model
              reduced, on the card against the same parameters on the CPU
-             (plain versions), within 1e-4.
+             (plain versions), within 1e-4;
+8. flash_bwd — the flash attention backward kernels (through the
+             autograd function of ``ops.flash_attention``) against the plain
+             version's autograd on the card, dq, dk, dv for a seeded dO: the
+             cases of ``tests/test_kernels.py``, head dims 64, 100 and 128, a
+             ragged length, rows with no live key, and the model's
+             transposed views, in fp32 (|err| <= 2e-5 max|plain|) and bf16
+             (|err| <= 1e-3 max|plain| + 1e-2 |plain|); times of the forward
+             with its log-sum-exp, of each backward kernel, of the plain
+             backward and of SDPA's at the gpt-1.3b training shape, beside
+             the least time the card could take;
+9. train_grads — fp32, TF32 off: the loss and every param grad of reduced
+             gpt-1.3b and bert-large through the kernels on the card against
+             the same on the CPU (plain versions), within 1e-4 of each
+             leaf's max|grad|; and the SSD scan refusing a gradient on CUDA;
+10. train  — ``build_train_step(..., substrate="loopback",
+             schedule="layered")`` on gpt-1.3b at full width and depth
+             (seq 512, two ranks of one plan on the one card, fp32 state,
+             bf16 compute), state from a seeded generator on the card,
+             tokens from ``SyntheticStream``: 1 warm-up step and 3 timed
+             ones; finite losses, every rank's shard of every unit changed
+             by each step, and the flash launches the plan, the schedule
+             and the per-layer checkpointing predict.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches on its
-serving run, its error and its times, and last
+main-path run (serving for the forwards, phase ``train`` for the
+backward), its error and its times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -73,6 +96,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core import fsdp  # noqa: E402
+from repro_torch.core.engine import build_train_step  # noqa: E402
+from repro_torch.core.partition import Plan, RankPlan  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -133,6 +160,23 @@ PTXAS: dict = {}    # kernel instance -> registers and spills (phase build)
 MAMBA = "mamba2-370m"
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN = 8, 2048, 32
 
+# the backward's cases: the forward's, views of the model's layout, rows
+# that see no key (causal, window 16, Sq > Sk + 15), and the gpt-1.3b
+# training shape (rank 0's 8 rows of the layered plan below)
+TRAIN_SHAPE = (8, 32, 32, 512, 512, 64, True, 0, 0.0)
+BWD_CASES = dict(
+    [(f"case{i}", (c, False)) for i, c in enumerate(FLASH_CASES)] + [
+        ("views-case7", (FLASH_CASES[7], True)),
+        ("gqa-d64", (GQA_SHAPE, False)),
+        ("d100-views", (HEAD_DIM_CASES["llama-3b-d100"], True)),
+        ("d128-ragged-1000", (HEAD_DIM_CASES["ragged-1000"], False)),
+        ("masked-rows", ((1, 2, 2, 96, 32, 64, True, 16, 0.0), False)),
+        ("gpt-1.3b-views", (TRAIN_SHAPE, True))])
+# gpt-1.3b training: two ranks on the one card, global batch 10, seq 512
+TRAIN_ARCH, TRAIN_SEQ = "gpt-1.3b", 512
+TRAIN_RANKS = [("rank0", 4, 2, 0.6), ("rank1", 2, 1, 0.4)]   # m, ell, r
+TRAIN_STEPS = 3
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -169,8 +213,8 @@ def _ptxas_usage(logs: dict) -> dict:
         for line in log.splitlines():
             hit = re.search(r"Compiling entry function '(\S+)'", line)
             if hit:
-                m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel\w*?)"
-                              r"I(\w+?)EEv", hit[1])
+                m = re.search(r"(flash_fwd_kernel_\w+?|flash_bwd_\w+?_kernel|"
+                              r"ssd_scan_kernel\w*?)I(\w+?)EEv", hit[1])
                 func = f"{m[1]}<{m[2]}>" if m else hit[1]
                 usage[func] = ""
             elif func is not None and ("registers" in line or
@@ -566,6 +610,334 @@ def phase_consistency(arch: str, batch: int, seq: int) -> dict:
     return res
 
 
+def _dead_rows(sq, sk, causal, window) -> np.ndarray:
+    """Query rows that no key is live for."""
+    qp = np.arange(sq)[:, None]
+    kp = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= qp - kp < window
+    return ~keep.any(axis=1)
+
+
+def _grads_close(name, got, want, dtype) -> dict:
+    """dq, dk, dv against the plain version's: fp32 within 2e-5 of
+    max|plain|, bf16 elementwise within 1e-3 max|plain| + 1e-2 |plain|
+    (fp32 sums in another order, then one bf16 rounding each).  Returns
+    each grad's largest absolute error and, under ``rel``, the largest
+    error over max|plain|."""
+    atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (1e-3, 1e-2)
+    errs = {"rel": 0.0}
+    for what, g, w in zip("qkv", got, want):
+        g, w = g.float(), w.float()
+        scale = w.abs().max()
+        diff = (g - w).abs()
+        over = (diff / (atol * scale + rtol * w.abs())).max().item()
+        if not (np.isfinite(over) and over <= 1.0 and scale.item() > 0):
+            raise AssertionError(f"flash backward {name} d{what}: max err "
+                                 f"{diff.max().item()}, {over} x the "
+                                 f"tolerance (max|plain| {scale.item()})")
+        errs[what] = diff.max().item()
+        errs["rel"] = max(errs["rel"], errs[what] / scale.item())
+    return errs
+
+
+def _flash_bwd_compare(name, case, views, dtype) -> dict:
+    b, h, kvh, sq, sk, d, causal, window, softcap = case
+    q, k, v = _qkv(case, dtype)
+    if views:   # (B, S, H, D) storage seen as (B, H, S, D), as the model does
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype)
+    dead = torch.from_numpy(_dead_rows(sq, sk, causal, window)).cuda()
+    # the plain version spreads a row with no live key over every key; the
+    # kernel gives it no gradient: compare with dO = 0 on such rows
+    dout_live = dout.masked_fill(dead[:, None], 0)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = dict(flash_ops.BWD_LAUNCHES)
+    got = torch.autograd.grad(flash_ops.flash_attention(q, k, v, **kw),
+                              (q, k, v), dout_live)
+    torch.cuda.synchronize()
+    if flash_ops.BWD_LAUNCHES != {n: c + 1 for n, c in before.items()}:
+        raise AssertionError(f"flash backward {name}: launches "
+                             f"{flash_ops.BWD_LAUNCHES} after {before}")
+    want = torch.autograd.grad(attention_reference(q, k, v, **kw),
+                               (q, k, v), dout_live)
+    err = _grads_close(f"{name} {dtype}", got, want, dtype)
+    if dead.any():
+        full = torch.autograd.grad(flash_ops.flash_attention(q, k, v, **kw),
+                                   (q, k, v), dout)
+        if not all(bool(torch.isfinite(t).all()) for t in full) or \
+                bool(full[0][:, :, dead].any()):
+            raise AssertionError(f"flash backward {name}: rows with no key "
+                                 f"must give finite grads and dq = 0")
+    return err
+
+
+def _bwd_bound(case, dtype, which: str):
+    """Least time (ms) of the backward's work at ``case``: ``which`` is
+    ``dq`` (S, dP and dQ: q, k, v, dO and L read, dq and D written),
+    ``dkdv`` (S, dP, dK and dV: q, k, v, dO, L and D read, dk and dv
+    written) or ``both`` (the function: S once, dP, dQ, dK, dV; q, k, v,
+    dO and L read, dq, dk, dv written); bytes at the HBM rate against the
+    products' FLOPs over the live (q, k) pairs at the peak for ``dtype``."""
+    b, h, kvh, sq, sk, d, causal, window, _ = case
+    esize = torch.tensor([], dtype=dtype).element_size()
+    qo, kv, rows = b * h * sq * d, b * kvh * sk * d, b * h * sq
+    nbytes = {"dq": esize * (3 * qo + 2 * kv) + 4 * 2 * rows,
+              "dkdv": esize * (2 * qo + 4 * kv) + 4 * 2 * rows,
+              "both": esize * (3 * qo + 4 * kv) + 4 * rows}[which]
+    qp = np.arange(sq)[:, None]
+    kp = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= qp - kp < window
+    pairs = b * h * int(keep.sum())
+    flops = {"dq": 6, "dkdv": 8, "both": 10}[which] * d * pairs
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
+    """Device ms per call of each kernel whose name holds one of
+    ``marks``, from ``torch.profiler`` over ``iters`` calls of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(marks, 0.0)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for mark in marks:
+                if mark in evt.name:
+                    out[mark] += evt.time_range.elapsed_us() / 1e3 / iters
+    if not all(out.values()):
+        raise AssertionError(f"the profiler saw no time for {out}")
+    return out
+
+
+def phase_flash_bwd() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs, main = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        for name, (case, views) in BWD_CASES.items():
+            err = _flash_bwd_compare(name, case, views, dtype)
+            errs[f"{name}-{tag}"] = err["rel"]
+            if case == TRAIN_SHAPE and dtype == torch.bfloat16:
+                main = err
+    dtype = torch.bfloat16
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(TRAIN_SHAPE, dtype))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    _, lse = flash_ops._forward(q, k, v, True, 0, 0.0, with_lse=True)
+    fwd_ms = _time_ms(lambda: flash_ops._forward(q, k, v, True, 0, 0.0,
+                                                 with_lse=True), 20)
+    bwd_ms = _time_ms(lambda: flash_ops._backward(q, k, v, lse, dout, True,
+                                                  0, 0.0), 20)
+    by_kernel = _kernel_ms_by_name(
+        lambda: flash_ops._backward(q, k, v, lse, dout, True, 0, 0.0), 20,
+        ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    ref_out = attention_reference(qr, kr, vr)
+    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        ref_out, (qr, kr, vr), dout, retain_graph=True), 5, warmup=1)
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    sdpa_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qr, kr, vr), dout, retain_graph=True), 20)
+    sdpa_fwd_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True),
+        (qr, kr, vr), dout), 20)
+    bwd_ms_2 = _time_ms(lambda: flash_ops._backward(q, k, v, lse, dout,
+                                                    True, 0, 0.0), 20)
+    fwd_bound, fwd_by, fwd_bytes, fwd_flops = _bound(TRAIN_SHAPE, dtype)
+    fwd_bytes += 4 * q.shape[0] * q.shape[1] * q.shape[2]   # the LSE
+    fwd_bound = max(fwd_bound, fwd_bytes / HBM_BYTES_S * 1e3)
+    bounds = {w: _bwd_bound(TRAIN_SHAPE, dtype, w)
+              for w in ("dq", "dkdv", "both")}
+    emit({"phase": "flash_bwd", "max_rel_err": errs,
+          "train_shape_max_abs_err": main, "shape": TRAIN_SHAPE,
+          "dtype": "bfloat16", "fwd_with_lse_ms": fwd_ms,
+          "fwd_with_lse_bound_ms": fwd_bound, "bwd_ms": bwd_ms,
+          "bwd_ms_repeat": bwd_ms_2, "bwd_kernel_ms": by_kernel,
+          "bwd_bound_ms": bounds["both"][0],
+          "bwd_bound_by": bounds["both"][1],
+          "bwd_tflops": bounds["both"][3] / bwd_ms / 1e9,
+          "plain_bwd_ms": plain_bwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+          "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+          "bounds": {w: {"ms": b[0], "by": b[1], "bytes": b[2],
+                         "flops": b[3]} for w, b in bounds.items()},
+          "ptxas": {k: v for k, v in PTXAS.items()
+                    if k.startswith("flash_bwd")}})
+    main_err = {"dq": main["q"], "dkdv": max(main["k"], main["v"])}
+    return {w: {"max_abs_err": main_err[w],
+                "ms": by_kernel[f"flash_bwd_{w}_kernel"],
+                "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
+                "bound_ms": bounds[w][0], "bound_by": bounds[w][1]}
+            for w in ("dq", "dkdv")}
+
+
+def _loss_and_grads(cfg, params, batch):
+    leaves, _ = fsdp.tree_flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = M.loss_fn(cfg, params, batch)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def phase_train_grads() -> dict:
+    """fp32, TF32 off: reduced models' loss and grads through the kernels
+    on the card against the plain versions on the CPU, same params."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for arch in ("gpt-1.3b", "bert-large"):
+        cfg = get_arch(arch).reduced()
+        cpu_params = M.init_params(cfg, torch.Generator().manual_seed(3),
+                                   "cpu", all_fp32=True)
+        tree = M.tree_map(cpu_params, lambda _, t: t.numpy())
+        toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                 (2, 129))
+        out = {}
+        for device in ("cpu", "cuda"):
+            t = torch.from_numpy(toks).to(device)
+            batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
+                     "weights": torch.full((2, 128), 1 / 256,
+                                           device=device)}
+            before = (flash_ops.LAUNCHES, dict(flash_ops.BWD_LAUNCHES))
+            out[device] = _loss_and_grads(
+                cfg, params_from_numpy(tree, device), batch)
+            torch.cuda.synchronize()
+        fwd = flash_ops.LAUNCHES - before[0]
+        bwd = {n: c - before[1][n] for n, c in flash_ops.BWD_LAUNCHES.items()}
+        if fwd != 2 * cfg.n_layers or set(bwd.values()) != {cfg.n_layers}:
+            raise AssertionError(f"{arch}: flash launches {fwd} forward, "
+                                 f"{bwd} backward for {cfg.n_layers} "
+                                 f"checkpointed layers")
+        (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
+        if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
+            raise AssertionError(f"{arch}: loss {loss_g} on the card, "
+                                 f"{loss_c} on the CPU")
+        worst = 0.0
+        for i, (gg, gc) in enumerate(zip(grads_g, grads_c)):
+            scale = gc.abs().max().item()
+            err = (gg.cpu() - gc).abs().max().item()
+            if not (np.isfinite(err) and err <= 1e-4 * scale and scale > 0):
+                raise AssertionError(f"{arch} grad leaf {i}: err {err} > "
+                                     f"1e-4 * {scale}")
+            worst = max(worst, err / scale)
+        res[arch] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
+                     "grad_max_rel_err": worst, "leaves": len(grads_c)}
+    x = torch.randn(1, 2, 64, 32, device="cuda", requires_grad=True)
+    dt = torch.rand(1, 2, 64, device="cuda")
+    bc = torch.randn(1, 64, 16, device="cuda")
+    try:
+        ssd_ops.ssd_scan(x, dt, -torch.ones(2, device="cuda"), bc, bc)
+    except RuntimeError as e:
+        res["ssd_scan_refuses_grad"] = str(e)[:60]
+    else:
+        raise AssertionError("ssd_scan on CUDA ran with an input that "
+                             "requires grad")
+    emit({"phase": "train_grads", "dtype": "float32", **res})
+    return res
+
+
+def _train_plan() -> Plan:
+    ranks = [RankPlan(i, dev, m=m, ell=ell, state_ratio=r)
+             for i, (dev, m, ell, r) in enumerate(TRAIN_RANKS)]
+    return Plan(model=TRAIN_ARCH, cluster="loopback-1-gpu",
+                global_batch=sum(r.b for r in ranks), ranks=ranks)
+
+
+def phase_train() -> dict:
+    """gpt-1.3b at full width and depth through the loopback MPMD engine;
+    returns the flash launches of the timed steps."""
+    cfg = get_arch(TRAIN_ARCH)
+    plan = _train_plan()
+    engine = build_train_step(cfg, plan, substrate="loopback",
+                              schedule="layered", seq_len=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    state = engine.init_state(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, seed=0))
+    blocks = [stream.sample(i, plan.global_batch)
+              for i in range(TRAIN_STEPS + 1)]
+    state, warm_loss = engine.step(state, blocks[0])
+    torch.cuda.synchronize()
+    flash_ops.LAUNCHES = 0
+    flash_ops.VARIANT_LAUNCHES.update(
+        dict.fromkeys(flash_ops.VARIANT_LAUNCHES, 0))
+    flash_ops.BWD_LAUNCHES.update(dict.fromkeys(flash_ops.BWD_LAUNCHES, 0))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    units = [g.name for g in engine.trainer.groups]
+    for blk in blocks[1:]:
+        before = {(r, u): state[r][u]["p"].view(-1)[::1009].clone()
+                  for r in range(plan.n) for u in units}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = engine.step(state, blk)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        for (r, u), old in before.items():
+            if torch.equal(old, state[r][u]["p"].view(-1)[::1009]):
+                raise AssertionError(f"rank {r} unit {u}: shard unchanged "
+                                     f"by a step")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + [warm_loss])):
+        raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
+    # rank calls per step: each round, each rank with microbatches in it;
+    # each call runs every layer's forward twice (checkpointed) and its
+    # backward once
+    chunks = engine.schedule.chunks(max(plan.ell_pad, 1))
+    calls, lo = 0, 0
+    for size in chunks:
+        calls += sum(1 for r in plan.ranks
+                     if min(lo + size, r.ell) > min(lo, r.ell))
+        lo += size
+    n = TRAIN_STEPS * calls * cfg.n_layers
+    launches = {"flash_attention": flash_ops.LAUNCHES,
+                **dict(flash_ops.BWD_LAUNCHES)}
+    want = {"flash_attention": 2 * n, "flash_bwd_dq": n,
+            "flash_bwd_dkdv": n}
+    if launches != want or flash_ops.VARIANT_LAUNCHES["bf16-mma"] != 2 * n:
+        raise AssertionError(f"train: flash launches {launches} "
+                             f"({flash_ops.VARIANT_LAUNCHES}), expected "
+                             f"{want}, all bf16")
+    mean_ms = float(np.mean(step_ms))
+    samples_s = plan.global_batch / (mean_ms / 1e3)
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": sum(
+              g.layout.size * g.count for g in engine.trainer.groups),
+          "seq": TRAIN_SEQ, "global_batch": plan.global_batch,
+          "ranks": TRAIN_RANKS, "schedule": "layered", "init_s": init_s,
+          "warmup_loss": warm_loss, "losses": losses, "step_ms": step_ms,
+          "mean_step_ms": mean_ms, "samples_s": samples_s,
+          "tokens_s": samples_s * TRAIN_SEQ, "peak_mem_gib": peak / 2**30,
+          "launches_per_step": {k: v // TRAIN_STEPS
+                                for k, v in launches.items()},
+          "collectives": dict(engine.trainer.substrate.stats),
+          "memory": engine.memory_report(state).splitlines()})
+    del engine, state
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if k != "flash_attention"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -583,6 +955,9 @@ def main() -> int:
         {"flash_attention": 0, "ssd_scan": get_arch(MAMBA).n_layers})
     phase_consistency("llama-7b", 2, 256)
     phase_consistency(MAMBA, 2, 1024)
+    bwd = phase_flash_bwd()
+    phase_train_grads()
+    bwd_launches = phase_train()
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -590,6 +965,14 @@ def main() -> int:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
          "launches": flash_launches["flash_attention"], **flash},
+        *({"name": f"flash_bwd_{w}", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention_bwd.cu",
+           "replaces": None,
+           "differentiates":
+               "src/repro/kernels/flash_attention/flash_attention.py:93",
+           "launches": bwd_launches[f"flash_bwd_{w}"], **bwd[w]}
+          for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:72",

@@ -1,0 +1,31 @@
+"""The execution engine of the port's Cephalo training runtime.
+
+The port of ``repro.core.engine`` (its loopback half):
+
+* :mod:`.units` — **UnitPlanner**: the param→unit grouping and flat
+  layouts;
+* :mod:`.schedules` — **Schedule**: the gradient-accumulation schedule
+  registry (``layered``, ``per_microbatch``, ``interleaved``);
+* :mod:`.substrate` — **LoopbackSubstrate**: the in-process ragged
+  AllGatherv / ReduceScatterv;
+* :mod:`.api` — ``build_train_step(cfg, plan, schedule=...,
+  substrate="loopback")``, which returns a ``TrainEngine``.
+"""
+
+from repro_torch.core.engine.api import (MpmdEngine, TrainEngine,
+                                         build_train_step, homogeneous_plan)
+from repro_torch.core.engine.schedules import (Schedule, chunked,
+                                               get_schedule, list_schedules,
+                                               register_schedule)
+from repro_torch.core.engine.substrate import (CollectiveSubstrate,
+                                               LoopbackSubstrate)
+from repro_torch.core.engine.units import (UnitGroup, UnitPlanner,
+                                           element_tree, merge_params,
+                                           split_params)
+
+__all__ = [
+    "CollectiveSubstrate", "LoopbackSubstrate", "MpmdEngine", "Schedule",
+    "TrainEngine", "UnitGroup", "UnitPlanner", "build_train_step",
+    "chunked", "element_tree", "get_schedule", "homogeneous_plan",
+    "list_schedules", "merge_params", "register_schedule", "split_params",
+]

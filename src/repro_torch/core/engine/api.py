@@ -1,0 +1,151 @@
+"""``build_train_step`` — the entry point of the Cephalo training runtime.
+
+The port of ``repro.core.engine.api``::
+
+    engine = build_train_step(cfg, plan, schedule="layered",
+                              substrate="loopback")
+    state = engine.init_state(torch.Generator("cuda").manual_seed(0))
+    state, loss = engine.step(state, big)      # big: (B, seq+1) tokens
+    params = engine.gather_params(state)
+
+``substrate="loopback"`` (or ``"auto"``) is the MPMD runtime: per-rank
+unpadded ``(ell_i, m_i)`` work and software loopback collectives on one
+device, ``cuda`` unless ``device="cpu"`` is asked for.  The SPMD
+``shard_map`` runtime and the ``multiproc`` process fleet are not ported
+yet (ROADMAP queue 1, items 9 and 10) and raise.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Any, Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.engine.schedules import Schedule, get_schedule
+from repro_torch.core.partition import Plan, RankPlan
+from repro_torch.optim.adam import AdamConfig
+
+SUBSTRATES = ("shard_map", "loopback", "multiproc")
+
+
+def homogeneous_plan(n: int, ell: int, m: int,
+                     device: str = "dev") -> Plan:
+    """Even plan for n identical ranks (the SPMD launcher's geometry)."""
+    ranks = [RankPlan(i, device, m=m, ell=ell, state_ratio=1.0 / n)
+             for i in range(n)]
+    return Plan(model="homogeneous", cluster=f"{n}x{device}",
+                global_batch=n * ell * m, ranks=ranks)
+
+
+class TrainEngine(abc.ABC):
+    """Uniform train-step surface over a (cfg, plan, schedule, substrate)."""
+
+    cfg: ArchConfig
+    plan: Plan
+    schedule: Schedule
+
+    @abc.abstractmethod
+    def init_state(self, generator: torch.Generator) -> Any:
+        """Materialize sharded training state from a seeded generator."""
+
+    @abc.abstractmethod
+    def step(self, state: Any, big: np.ndarray) -> Tuple[Any, float]:
+        """One optimizer step over a (B, seq+1) token block."""
+
+    @abc.abstractmethod
+    def gather_params(self, state: Any) -> Dict[str, Any]:
+        """Reassemble the full model param tree."""
+
+    @abc.abstractmethod
+    def export_state(self, state: Any) -> Dict[str, Any]:
+        """Substrate-independent full training state:
+        ``{"step": int, "p"/"m"/"v": model-shaped trees}``."""
+
+    @abc.abstractmethod
+    def import_state(self, exported: Dict[str, Any]) -> Any:
+        """Lay an :meth:`export_state` payload out on THIS engine's plan:
+        params and Adam moments land on the shard layouts, the step
+        counter carries over.  Leaves may be tensors on any device."""
+
+    def close(self) -> None:
+        """Release engine-held resources; nothing for the loopback
+        substrate.  Idempotent."""
+
+    def __enter__(self) -> "TrainEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class MpmdEngine(TrainEngine):
+    """Loopback substrate: per-rank unpadded work in one process."""
+
+    def __init__(self, cfg: ArchConfig, plan: Plan, schedule: Schedule,
+                 adam: AdamConfig, seq_len: int,
+                 device: torch.device | str):
+        # the runtime imports this package: import it here, not above
+        from repro_torch.core.hetero_trainer import HeteroTrainer
+        self.cfg, self.plan, self.schedule = cfg, plan, schedule
+        self.seq = seq_len
+        self.trainer = HeteroTrainer(cfg, plan, adam=adam, seq_len=seq_len,
+                                     schedule=schedule, device=device)
+
+    def init_state(self, generator: torch.Generator):
+        return self.trainer.init_shards(generator)
+
+    def step(self, state, big: np.ndarray):
+        return self.trainer.step(state, np.asarray(big))
+
+    def gather_params(self, state) -> Dict[str, Any]:
+        return self.trainer.software_allgather(state)
+
+    def export_state(self, state) -> Dict[str, Any]:
+        sub = self.trainer.substrate
+        return {"step": int(state[0]["step"]) if state else 0,
+                "p": sub.allgather_params(state, "p"),
+                "m": sub.allgather_params(state, "m"),
+                "v": sub.allgather_params(state, "v")}
+
+    def import_state(self, exported: Dict[str, Any]):
+        shards = self.trainer.substrate.shard_state(
+            exported["p"], exported.get("m"), exported.get("v"))
+        for s in shards:
+            s["step"] = int(exported.get("step", 0))
+        return shards
+
+    def memory_report(self, state) -> str:
+        return self.trainer.memory_report(state)
+
+
+def build_train_step(cfg: ArchConfig, plan: Plan, *,
+                     schedule: Union[str, Schedule] = "layered",
+                     substrate: str = "auto",
+                     adam: AdamConfig = AdamConfig(),
+                     seq_len: int = 512,
+                     device: torch.device | str = "cuda") -> TrainEngine:
+    """Build a train engine for ``(cfg, plan)``.
+
+    ``schedule`` — any name in :func:`list_schedules` (or a
+    :class:`Schedule`).  ``substrate`` — ``"loopback"`` or ``"auto"``
+    (which means loopback); ``"shard_map"`` and ``"multiproc"`` raise
+    NotImplementedError until their slices land.
+    """
+    sched = get_schedule(schedule)
+    if substrate == "auto":
+        substrate = "loopback"
+    if substrate == "shard_map":
+        raise NotImplementedError(
+            "substrate 'shard_map' (the SPMD runtime) is not ported yet: "
+            "ROADMAP queue 1, item 10")
+    if substrate == "multiproc":
+        raise NotImplementedError(
+            "substrate 'multiproc' (the process fleet) is not ported yet: "
+            "ROADMAP queue 1, item 9")
+    if substrate != "loopback":
+        raise ValueError(f"unknown substrate {substrate!r}; "
+                         f"choose from {SUBSTRATES}")
+    return MpmdEngine(cfg, plan, sched, adam, seq_len, device)

@@ -1,6 +1,7 @@
 // Flash attention forward for Hopper (sm_90a), built by kernels/build.py
 // into a shared library with a plain C interface and called through ctypes
-// from kernels/flash_attention/ops.py.
+// from kernels/flash_attention/ops.py.  The backward is in
+// flash_attention_bwd.cu.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel
@@ -61,12 +62,13 @@
 // producer warp, two consumer warpgroups taking turns at the softmax) is
 // the next step.  Also left: one K/V tile feeding a whole GQA group
 // (tiny-llama KV 4, gemma-2b KV 1; not on the measured path), and the
-// backward pass for training.
+// backward (flash_attention_bwd.cu) on tensor cores.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -75,6 +77,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // finite, as the reference
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;  // both kernels: 4 warps of 16 query rows
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // 64 query rows per block
@@ -84,6 +87,10 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  // (B, H, Sq) fp32: each row's log-sum-exp of its logits (after the scale
+  // and the softcap, natural log; -inf where no key is live), for the
+  // backward; null when not wanted (serving)
+  float* lse;
   int B, H, KVH, Sq, Sk, D;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -264,6 +271,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fma(Params p) {
 #pragma unroll
       for (int c = 0; c < NC; ++c)
         if (lane + 32 * c < D) og[qp * p.o_ss + lane + 32 * c] = acc[r][c] / lv;
+      if (p.lse != nullptr && lane == 0)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qp] =
+            m[r] == kNegInf ? -INFINITY : m[r] + logf(l[r]);
     }
   }
 }
@@ -784,6 +794,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qp = w_first + g + 8 * r;
+    // m and l are in log2 units: the natural-log LSE is ln 2 (m + log2 l)
+    if (p.lse != nullptr && t4 == 0 && qp < p.Sq)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qp] =
+          m[r] == kNegInf ? -INFINITY : (m[r] + log2f(l[r])) * kLn2;
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
   const int row0 = warp * 16;
@@ -924,6 +939,8 @@ cudaError_t dispatch_fma(const Params& p, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32 (scalar FMA kernel), 1 = bfloat16 (tensor cores).
+// lse: (B, H, Sq) fp32, contiguous, or null: each row's log-sum-exp, for
+// the backward.
 // D: a multiple of 4 in [8, 256].  Strides are in elements; the last
 // (head-dim) stride of q, k, v and o must be 1.  vec (bf16 only): elements
 // per copy, 8 or 4; D, the base pointers and the B/H/S strides of q, k, v
@@ -931,7 +948,8 @@ cudaError_t dispatch_fma(const Params& p, cudaStream_t s) {
 // the caller rounds it to fp32.  Returns the CUDA error code of the launch
 // (0 = launched).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B,
     int H, int KVH, int Sq, int Sk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -945,6 +963,7 @@ extern "C" int flash_attention_fwd(
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.B = B;
   p.H = H;
   p.KVH = KVH;

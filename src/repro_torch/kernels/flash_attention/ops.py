@@ -9,6 +9,13 @@ kernel: bf16 runs on tensor cores (``bf16-mma``), fp32 on scalar FMAs
 ragged edges themselves, so unlike the TPU wrapper nothing is padded; they
 read through the strides they are given, so transposed views are not
 copied.
+
+Where grad mode is on and q, k or v requires grad, CUDA tensors go
+through :class:`FlashAttention`, a ``torch.autograd.Function``: its
+forward launches the forward kernel, which then also writes each row's
+log-sum-exp, and its backward launches the two backward kernels of
+``csrc/flash_attention_bwd.cu`` (dQ, then dK and dV).  CPU tensors take
+the plain version through plain autograd.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -25,6 +33,9 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 LAUNCHES = 0
 #: The same launches by kernel variant.
 VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
+#: Launches of the backward kernels (both dtypes), apart from the forward
+#: ones above.
+BWD_LAUNCHES = {"flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
 
 #: Head dims both kernels take: multiples of 4 from 8 to 256 (the bf16
 #: kernel pads to a multiple of 16, the fp32 one to 32, with zeros).
@@ -32,6 +43,7 @@ HEAD_DIMS = tuple(range(8, 257, 4))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}
 _FN = None
+_BWD_FNS = None
 
 
 def _kernel_fn():
@@ -39,12 +51,31 @@ def _kernel_fn():
     if _FN is None:
         fn = build.load("flash_attention").flash_attention_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         _FN = fn
     return _FN
+
+
+def _bwd_fns():
+    """The dq and the dkdv entry points of the backward library, which
+    share one argument list."""
+    global _BWD_FNS
+    if _BWD_FNS is None:
+        lib = build.load("flash_attention_bwd")
+        fns = {}
+        for name in BWD_LAUNCHES:
+            fn = getattr(lib, "flash_attention_" + name[len("flash_"):])
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_float,
+                              ctypes.c_void_p])
+            fns[name] = fn
+        _BWD_FNS = fns
+    return _BWD_FNS
 
 
 def _copy_width(tensors, ptrs) -> int:
@@ -106,32 +137,99 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding-window masking; ``softcap`` the gemma2-style logit cap.
     Returns (B, H, Sq, D) in q's dtype.
     """
-    global LAUNCHES
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _forward(q, k, v, causal, window, softcap, with_lse):
+    """Launch the forward kernel; returns (out, lse or None)."""
+    global LAUNCHES
     ptrs, vec = _check(q, k, v)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     if sk == 0:
         raise ValueError("flash_attention needs at least one key")
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*ptrs, out.data_ptr(),
+        rc = fn(*ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(),
                 _DTYPES[q.dtype], b, h, kvh, sq, sk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], int(causal), int(window), float(softcap),
-                float(d ** -0.5), vec, stream)
+                float(d ** -0.5), vec, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[VARIANTS[q.dtype]] += 1
-    return out
+    return out, lse
+
+
+def _backward(q, k, v, lse, dout, causal, window, softcap):
+    """Launch the dq kernel, then the dkdv kernel; returns (dq, dk, dv) in
+    q's dtype, each laid out as its input (``empty_like``).  dO is made
+    contiguous here."""
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: grad {tuple(dout.shape)}"
+                         f" {dout.dtype}, output {tuple(q.shape)} {q.dtype}")
+    dout = dout.contiguous()
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, dout, dq, dk, dv)
+    for name, t in zip(("q", "k", "v", "dout", "dq", "dk", "dv"), tensors):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: head dim must have stride 1, strides "
+                             f"{t.stride()}")
+    strides = (ctypes.c_longlong * 21)(*(s for t in tensors
+                                         for s in t.stride()[:3]))
+    ptrs = [t.data_ptr() for t in (q, k, v, dout)] + [
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr()]
+    with torch.cuda.device(q.device):
+        stream = _stream(q.device)
+        for name, fn in _bwd_fns().items():     # dq first: it writes delta
+            rc = fn(*ptrs, _DTYPES[q.dtype], b, h, kvh, sq, sk, d, strides,
+                    int(causal), int(window), float(softcap),
+                    float(d ** -0.5), stream)
+            if rc != 0:
+                raise RuntimeError(f"flash_attention backward kernel {name} "
+                                   f"launch failed: CUDA error {rc}")
+            BWD_LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The CUDA kernels as an autograd function: the forward kernel with
+    the row log-sum-exp, and its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, lse, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None

@@ -22,10 +22,12 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % kvh:
         raise ValueError(f"q heads {h} not a multiple of kv heads {kvh}")
     rep = h // kvh
-    k = k.repeat_interleave(rep, dim=1)
-    v = v.repeat_interleave(rep, dim=1)
+    # upcast before the repeat: the same values, and autograd then sums a
+    # GQA group's dK and dV in fp32 (repeated bf16 would sum them in bf16)
+    k = k.float().repeat_interleave(rep, dim=1)
+    v = v.float().repeat_interleave(rep, dim=1)
     scale = d ** -0.5
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     qp = torch.arange(sq, device=q.device)[:, None]
@@ -40,5 +42,5 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.where(mask[None, None], logits,
                          torch.full_like(logits, _NEG_INF))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
     return out.to(q.dtype)

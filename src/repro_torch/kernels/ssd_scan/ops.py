@@ -10,6 +10,10 @@ a ragged L themselves, so unlike the TPU wrapper nothing is padded; they
 read through the strides they are given, so the column slices and
 transposed views that ``models.layers.ssd.ssd_apply`` passes are not
 copied.
+
+On CUDA it refuses a gradient: with grad mode on, an input that requires
+grad raises, since the kernel has no backward yet (the Mamba2 training
+slice brings it).  The CPU path is plain PyTorch and differentiates.
 """
 
 from __future__ import annotations
@@ -137,6 +141,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return ssd_scan_reference(x, dt, a, b, c, h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
+        raise RuntimeError(
+            "ssd_scan on CUDA has no backward yet: its gradient comes with "
+            "the SSD backward kernel of the Mamba2 training slice (ROADMAP "
+            "queue 1, item 7); call it under torch.no_grad() or on inputs "
+            "that do not require grad")
     _check(x, dt, a, b, c, h0)
     bsz, h, l, p = x.shape
     n = b.shape[2]

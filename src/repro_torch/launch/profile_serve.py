@@ -38,6 +38,8 @@ def _kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in low:
         return "flash_attention"
+    if "flash_bwd_" in low:
+        return "flash_attention_bwd"
     if "ssd_scan_kernel" in low:
         return "ssd_scan"
     if any(m in low for m in _GEMM_MARKS):

@@ -10,9 +10,16 @@ Public API (plain functions over a params dict, plus :class:`DecoderLM`,
 the ``nn.Module`` that holds the parameters):
 
 * :func:`init_params`
+* :func:`loss_fn`       — training loss (chunked CE), dense stages
+* :func:`forward_hidden` — activations for training
 * :func:`init_cache`
 * :func:`prefill`       — build KV / SSM caches, return last logits
 * :func:`decode_step`   — one-token serving step (updates caches in place)
+
+The training functions take a stage either stacked, as above, or as a
+list of per-layer trees: the MPMD trainer passes one autograd leaf per
+layer and leaf, so that each layer's gradient lands in its own tensor and
+no stacked-size gradient is built per layer.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, AttnKind
 from repro_torch.models import blocks as B
@@ -99,19 +108,22 @@ def layer(tree: Any, i: int) -> Any:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device: torch.device | str = "cuda") -> Dict[str, Any]:
+                device: torch.device | str = "cuda",
+                all_fp32: bool = False) -> Dict[str, Any]:
     """Random parameters with the JAX package's tree, names and shapes.
 
     Values are drawn in fp32 from ``generator`` (which must live on
     ``device``); all leaves but the fp32 ones are stored in the config dtype
-    (see :func:`storage_dtype`).  Layers are drawn one at a time into the
-    stacked tensors, so fp32 copies of at most one layer exist at once.
+    (see :func:`storage_dtype`), or every leaf in fp32 with ``all_fp32``
+    (training state, which the JAX package keeps in fp32).  Layers are
+    drawn one at a time into the stacked tensors, so fp32 copies of at most
+    one layer exist at once.  ``device="meta"`` gives shapes only.
     """
     device = resolve_device(device)
-    if cfg.learned_pos or cfg.frontend_dim:
-        raise NotImplementedError("learned positions / frontend stub: "
-                                  "later slice")
-    dtype = compute_dtype(cfg)
+    if cfg.frontend_dim:
+        raise NotImplementedError("frontend stub (frontend_proj): the ViT "
+                                  "slice")
+    dtype = torch.float32 if all_fp32 else compute_dtype(cfg)
 
     def store(path, t):
         return t.to(storage_dtype(path, dtype))
@@ -124,6 +136,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = store(("head",), dense_init(
             generator, (cfg.d_model, cfg.vocab_size), device=device))
+    if cfg.learned_pos:
+        pos = torch.empty((cfg.max_seq, cfg.d_model), dtype=torch.float32,
+                          device=device)
+        params["pos_embed"] = store(("pos_embed",), 0.02 * torch.nn.init.
+                                    normal_(pos, generator=generator))
     stages = []
     for spec in build_stages(cfg):
         stacked = None
@@ -165,12 +182,15 @@ def param_count(params: Any) -> int:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ArchConfig, params: Dict[str, Any],
-                 tokens: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype,
                              device=x.device)
+    if cfg.learned_pos:
+        x = x + params["pos_embed"].to(dtype)[positions]
     return x
 
 
@@ -183,6 +203,109 @@ def head_logits(cfg: ArchConfig, params: Dict[str, Any],
     if cfg.final_softcap > 0:
         z = cfg.final_softcap * torch.tanh(z / cfg.final_softcap)
     return z
+
+
+# ---------------------------------------------------------------------------
+# Forward and loss (training)
+# ---------------------------------------------------------------------------
+
+def stage_layers(stage: Any, count: int) -> List[Any]:
+    """The per-layer trees of a stage given stacked (views of each layer)
+    or as a list of per-layer trees (returned as it is)."""
+    if isinstance(stage, list):
+        return stage
+    return [layer(stage, i) for i in range(count)]
+
+
+def element_apply(cfg: ArchConfig, spec: StageSpec, bp: Any, x: torch.Tensor,
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply ONE stage element (= one Cephalo FSDP unit) to ``x``.
+    Returns (y, aux); aux, the MoE router loss, is 0 for dense blocks."""
+    if spec.kind != "dense":
+        raise NotImplementedError(f"training through {spec.kind!r} stages: "
+                                  "later slice")
+    y, _ = B.dense_block_apply(bp, x, cfg, positions, local=spec.local)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _stage_apply_train(cfg: ArchConfig, spec: StageSpec, stage: Any,
+                       x: torch.Tensor, positions: torch.Tensor,
+                       aux: torch.Tensor, remat: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stage's layers in order.  ``remat="full"`` checkpoints each
+    layer (its activations are recomputed in the backward, as
+    ``jax.checkpoint`` over the reference's scan body); ``"none"`` keeps
+    them."""
+    if remat not in ("full", "none"):
+        raise ValueError(f"remat {remat!r}: 'full' or 'none'")
+    for bp in stage_layers(stage, spec.count):
+        if remat == "full":
+            y, a = checkpoint(element_apply, cfg, spec, bp, x, positions,
+                              use_reentrant=False)
+        else:
+            y, a = element_apply(cfg, spec, bp, x, positions)
+        x, aux = y, aux + a
+    return x, aux
+
+
+def forward_hidden(cfg: ArchConfig, params: Dict[str, Any],
+                   tokens: torch.Tensor, remat: str = "full"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (hidden, aux_loss)."""
+    bsz, seq = tokens.shape
+    positions = torch.arange(seq, device=tokens.device)[None].expand(
+        bsz, seq)
+    x = embed_tokens(cfg, params, tokens, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, sp in zip(build_stages(cfg), params["stages"]):
+        x, aux = _stage_apply_train(cfg, spec, sp, x, positions, aux, remat)
+    return x, aux
+
+
+def _ce_chunk(cfg: ArchConfig, params: Dict[str, Any], hc: torch.Tensor,
+              yc: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+    z = head_logits(cfg, params, hc)                 # (B, C, V) fp32
+    lse = torch.logsumexp(z, dim=-1)
+    picked = z.gather(-1, yc[..., None])[..., 0]
+    return torch.sum(wc * (lse - picked))
+
+
+def chunked_ce(cfg: ArchConfig, params: Dict[str, Any], h: torch.Tensor,
+               labels: torch.Tensor, weights: torch.Tensor,
+               chunk: int = 512) -> torch.Tensor:
+    """Σ_ij w_ij · CE_ij without materializing (B, S, V) logits: sequence
+    chunks in order, each checkpointed, so the backward recomputes its
+    logits and memory stays O(B · chunk · V)."""
+    bsz, seq, _ = h.shape
+    chunk = min(chunk, seq)
+    if seq % chunk != 0:
+        pad = chunk - seq % chunk
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        weights = F.pad(weights, (0, pad))
+        seq += pad
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, seq, chunk):
+        sl = slice(lo, lo + chunk)
+        tot = tot + checkpoint(_ce_chunk, cfg, params, h[:, sl],
+                               labels[:, sl], weights[:, sl],
+                               use_reentrant=False)
+    return tot
+
+
+def loss_fn(cfg: ArchConfig, params: Dict[str, Any], batch: Dict[str, Any],
+            remat: str = "full", ce_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted-sum CE + router aux.  ``batch`` holds ``tokens`` and
+    ``labels`` (B, S) int64 and ``weights`` (B, S) fp32, the Eq. 1
+    normalization (uniform 1/(B·S) for homogeneous training)."""
+    h, aux = forward_hidden(cfg, params, batch["tokens"], remat)
+    ce = chunked_ce(cfg, params, h, batch["labels"], batch["weights"],
+                    ce_chunk)
+    total_w = torch.clamp(torch.sum(batch["weights"]), min=1e-9)
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce_sum": ce, "aux": aux, "weight_sum": total_w}
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +347,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, positions)
     caches = init_cache(cfg, bsz, max_len, tokens.device)
     for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
         if spec.kind == "ssm":
@@ -251,7 +374,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
     Writes this token's (k, v), or the new SSM and conv state, into
     ``caches`` in place and returns (logits (B, 1, V) fp32, caches).
     """
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, positions[:, None])
     for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
         if spec.kind == "ssm":
             for i in range(spec.count):

@@ -1,0 +1,220 @@
+"""The port's MPMD loopback runtime against the JAX package's, on the CPU.
+
+* Plan, schedules and data: the port's copies give the same
+  ``Schedule.chunks``, ``SyntheticStream`` blocks and padded grids.
+* Layout: shard sizes and flat buffers equal the reference's, element by
+  element, for the parity-matrix plan's ratios and the ratio vectors of
+  ``tests/test_layout_properties.py`` (uneven, a zero-size rank, one rank).
+* Engine: the parity-matrix plan (``tests/test_parity_matrix.py:37-45``) ×
+  {layered, per_microbatch, interleaved}, 2 steps on reduced tiny-llama
+  from the same params: per-step losses within 1e-5, exported ``m`` and
+  ``v`` within 1e-4 of their max, collective counts equal.  ``p`` is held
+  to 1e-5 after the first step wherever that Adam step was well
+  conditioned, and to lr per step everywhere.  Adam divides m by
+  sqrt(v) + 1e-8, so where a grad is near 1e-8 an fp32-level difference
+  of the grad moves p by a fraction of lr (one w_down element: grad 3e-9
+  here, 7e-9 there, p 1.9e-4 apart at lr 1e-3), and the second step's
+  grads are taken at those params.  Well conditioned: the reference's
+  sqrt(v_hat) >= 1e-6, 100x Adam's eps.  Elements with no grad yet
+  (unseen tokens' embedding rows) must not move at all.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_arch as jax_arch
+from repro.core.engine import build_train_step as jax_build
+from repro.core.engine import schedules as jax_schedules
+from repro.core.engine.substrate import LoopbackSubstrate as JaxSubstrate
+from repro.core.engine.units import UnitPlanner as JaxPlanner
+from repro.core.partition import Plan as JaxPlan
+from repro.core.partition import RankPlan as JaxRankPlan
+from repro.data import pipeline as jax_pipeline
+from repro.models import model as JM
+from repro.optim.adam import AdamConfig as JaxAdam
+from repro_torch.configs.base import get_arch
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import fsdp
+from repro_torch.core.engine import (LoopbackSubstrate, UnitPlanner,
+                                     build_train_step, get_schedule,
+                                     homogeneous_plan, list_schedules)
+from repro_torch.core.partition import Plan, RankPlan
+from repro_torch.data import pipeline
+from repro_torch.optim.adam import AdamConfig
+
+SCHEDULES = ("layered", "per_microbatch", "interleaved")
+#: the parity-matrix plan: uneven m/ell and ratios
+RANKS = [("A", 2, 2, 0.6), ("B", 1, 1, 0.4)]
+SEQ = 16
+#: the ratio vectors: the plan's, and the shapes of
+#: tests/test_layout_properties.py (uneven, zero-size rank, one rank)
+RATIOS = [[0.6, 0.4], [1.0], [0.0, 1.0], [0.2, 0.3, 0.5],
+          [0.0, 0.35, 0.15, 0.5], [0.1, 0.2, 0.3, 0.4]]
+
+
+def _plans():
+    mk = [(RankPlan, Plan), (JaxRankPlan, JaxPlan)]
+    return [P(model="toy", cluster="toy",
+              global_batch=sum(m * ell for _, m, ell, _ in RANKS),
+              ranks=[R(i, d, m=m, ell=ell, state_ratio=r)
+                     for i, (d, m, ell, r) in enumerate(RANKS)])
+            for R, P in mk]
+
+
+def test_schedules_match_reference():
+    assert list_schedules() == jax_schedules.list_schedules()
+    plan, _ = _plans()
+    for name in SCHEDULES:
+        for ell in range(0, 7):
+            assert get_schedule(name).chunks(ell) == \
+                jax_schedules.get_schedule(name).chunks(ell)
+        assert get_schedule(name).chunks(plan.ell_pad) == \
+            jax_schedules.get_schedule(name).chunks(plan.ell_pad)
+
+
+def test_plan_geometry_matches_reference():
+    plan, jplan = _plans()
+    for attr in ("n", "m_pad", "ell_pad", "padded_batch", "padding_waste"):
+        assert getattr(plan, attr) == getattr(jplan, attr)
+    np.testing.assert_array_equal(plan.example_weights(),
+                                  jplan.example_weights())
+    plan.check()
+    assert Plan.from_json(plan.to_json()) == plan
+    hp = homogeneous_plan(3, 2, 4)
+    assert hp.global_batch == 24 and hp.state_ratios().sum() == 1.0
+
+
+def test_synthetic_stream_and_grid_match_reference():
+    plan, jplan = _plans()
+    cfg = pipeline.DataConfig(vocab_size=512, seq_len=SEQ, seed=2)
+    jcfg = jax_pipeline.DataConfig(vocab_size=512, seq_len=SEQ, seed=2)
+    stream, jstream = (pipeline.SyntheticStream(cfg),
+                       jax_pipeline.SyntheticStream(jcfg))
+    for step in range(3):
+        np.testing.assert_array_equal(stream.sample(step, 5),
+                                      jstream.sample(step, 5))
+    got = pipeline.make_plan_batch(stream, 1, plan)
+    want = jax_pipeline.make_plan_batch(jstream, 1, jplan)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def _filled(planner_cfg, seed):
+    """The JAX package's param tree shapes, filled with distinct values."""
+    shapes = jax.eval_shape(
+        lambda: JM.init_params(planner_cfg, jax.random.PRNGKey(0)))
+    leaves, treedef = jax.tree.flatten(shapes)
+    rng = np.random.default_rng(seed)
+    return jax.tree.unflatten(treedef, [
+        rng.standard_normal(x.shape).astype(np.float32) for x in leaves])
+
+
+@pytest.mark.parametrize("ratios", RATIOS,
+                         ids=["-".join(map(str, r)) for r in RATIOS])
+def test_layout_and_flat_buffers_match_reference(ratios):
+    jcfg = jax_arch("tiny-llama").reduced()
+    cfg = get_arch("tiny-llama").reduced()
+    jplanner, planner = JaxPlanner(jcfg, ratios), UnitPlanner(cfg, ratios)
+    assert [g.name for g in planner.groups] == \
+        [g.name for g in jplanner.groups]
+    for g, jg in zip(planner.groups, jplanner.groups):
+        assert g.count == jg.count
+        assert g.layout.shapes == jg.layout.shapes
+        assert (g.layout.size, g.layout.padded, g.layout.shard_sizes) == \
+            (jg.layout.size, jg.layout.padded, jg.layout.shard_sizes)
+    tree = _filled(jcfg, seed=len(ratios))
+    jsub = JaxSubstrate(jplanner)
+    sub = LoopbackSubstrate(planner, "cpu")
+    tparams = params_from_numpy(tree, "cpu")
+    flats, jflats = sub.flatten_tree(tparams), jsub.flatten_tree(tree)
+    for name in jflats:
+        np.testing.assert_array_equal(flats[name].numpy(), jflats[name])
+    slices, jslices = sub.slice_flats(flats), jsub.slice_flats(jflats)
+    for r, js in enumerate(jslices):
+        for name in js:
+            np.testing.assert_array_equal(slices[r][name].numpy(), js[name])
+    back = sub.unflatten_flats(sub.concat_slices(slices))
+    for a, b in zip(fsdp.tree_flatten(back)[0], jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def _export(engine, state, leaves):
+    """{"p","m","v"}: each a list of numpy leaves (``leaves`` flattens a
+    tree in jax.tree.flatten's order); the export's gathers are not
+    counted in the engine's collective stats."""
+    stats = engine.trainer.substrate.stats
+    counts = dict(stats)
+    out = engine.export_state(state)
+    stats.update(counts)
+    return {k: [np.asarray(x, dtype=np.float32) for x in leaves(out[k])]
+            for k in "pmv"}
+
+
+@pytest.fixture(scope="module")
+def jax_init():
+    cfg = jax_arch("tiny-llama").reduced()
+    return jax.device_get(JM.init_params(cfg, jax.random.PRNGKey(0)))
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_engine_matches_reference_loopback(schedule, jax_init):
+    plan, jplan = _plans()
+    jcfg = jax_arch("tiny-llama").reduced()
+    cfg = get_arch("tiny-llama").reduced()
+    stream = pipeline.SyntheticStream(pipeline.DataConfig(
+        cfg.vocab_size, SEQ, seed=2))
+    jeng = jax_build(jcfg, jplan, substrate="loopback", schedule=schedule,
+                     adam=JaxAdam(lr=1e-3), seq_len=SEQ)
+    eng = build_train_step(cfg, plan, substrate="loopback",
+                           schedule=schedule, adam=AdamConfig(lr=1e-3),
+                           seq_len=SEQ, device="cpu")
+    jstate = jeng.import_state({"step": 0, "p": jax_init})
+    state = eng.import_state({"step": 0,
+                              "p": params_from_numpy(jax_init, "cpu")})
+    steps, lr = 2, 1e-3
+    for step in range(steps):
+        big = stream.sample(step, plan.global_batch)
+        jstate, jloss = jeng.step(jstate, big)
+        state, loss = eng.step(state, big)
+        assert abs(loss - jloss) <= 1e-5, (step, loss, jloss)
+        got = _export(eng, state, lambda t: fsdp.tree_flatten(t)[0])
+        want = _export(jeng, jstate, jax.tree.leaves)
+        err = {k: [np.abs(g - w) for g, w in zip(got[k], want[k])]
+               for k in "pmv"}
+        for k in "mv":
+            scale = max(np.abs(w).max() for w in want[k])
+            assert max(e.max() for e in err[k]) <= 1e-4 * scale, (step, k)
+        for e, v in zip(err["p"], want["v"]):
+            assert e.max() <= lr * (step + 1)
+            assert not e[v == 0].any()    # no grad yet: not moved
+            if step == 0:   # v_hat = v / (1 - b2)
+                well = np.sqrt(v / (1 - JaxAdam().b2)) >= 1e-6
+                assert e[well].max(initial=0.0) <= 1e-5
+    assert eng.trainer.substrate.stats == jeng.trainer.substrate.stats
+    assert eng.export_state(state)["step"] == steps
+    assert "rank1" in eng.memory_report(state)
+
+
+def test_engine_init_state_and_substrates():
+    cfg = get_arch("gpt-1.3b").reduced()
+    plan, _ = _plans()
+    eng = build_train_step(cfg, plan, device="cpu", seq_len=SEQ)
+    state = eng.init_state(torch.Generator().manual_seed(0))
+    assert [s["step"] for s in state] == [0, 0]
+    sizes = {name: t["p"].shape[-1] for name, t in state[0].items()
+             if name != "step"}
+    for g in eng.trainer.groups:
+        assert sizes[g.name] == g.layout.shard_sizes[0]
+        assert not state[0][g.name]["m"].any()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_train_step(cfg, plan, substrate="shard_map", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_train_step(cfg, plan, substrate="multiproc", device="cpu")
+    with pytest.raises(ValueError):
+        build_train_step(cfg, plan, substrate="nccl", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_train_step(cfg, plan)

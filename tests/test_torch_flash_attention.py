@@ -138,11 +138,51 @@ def test_check_takes_every_config_head_dim(arch):
 
 def test_build_finds_the_kernel_source():
     srcs = build.sources()
-    assert set(srcs) == {"flash_attention", "ssd_scan"}
+    assert set(srcs) == {"flash_attention", "flash_attention_bwd",
+                         "ssd_scan"}
     src = srcs["flash_attention"]
     assert src.read_text().startswith("// Flash attention forward")
+    assert srcs["flash_attention_bwd"].read_text().startswith(
+        "// Flash attention backward")
     lib = build._lib_path(src)
     assert lib.parent == build.BUILD_DIR and lib.name.endswith(".so")
+
+
+def _dout(b, h, sq, d, seed=5):
+    return np.random.default_rng(seed).standard_normal(
+        (b, h, sq, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,softcap",
+                         FLASH_CASES, ids=CASE_IDS)
+def test_plain_grads_match_jax_dense_attention(b, h, kvh, sq, sk, d, causal,
+                                               window, softcap):
+    """The plain version's autograd against ``jax.grad`` of the JAX
+    package's ``dense_attention`` (what the reference trains through),
+    fp32: each grad within 2e-5 of its max|jax grad|."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.models.layers.attention import AttnSpec, dense_attention
+    q, k, v = _qkv(b, h, kvh, sq, sk, d)
+    g = _dout(b, h, sq, d)
+    spec = AttnSpec(n_heads=h, n_kv_heads=kvh, head_dim=d, causal=causal,
+                    window=window, softcap=softcap)
+    qpos = jnp.broadcast_to(jnp.arange(sq), (b, sq))
+    kpos = jnp.broadcast_to(jnp.arange(sk), (b, sk))
+
+    def loss(jq, jk, jv):     # (B, S, H, D) layout, as the model passes
+        out = dense_attention(jq, jk, jv, spec, qpos, kpos)
+        return jnp.sum(out * jnp.asarray(g.transpose(0, 2, 1, 3)))
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              softcap=softcap)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for name, gt, wt in zip("qkv", got, want):
+        wt = np.asarray(wt).transpose(0, 2, 1, 3)
+        err = np.abs(gt.numpy() - wt).max()
+        assert err <= 2e-5 * np.abs(wt).max(), (name, err)
 
 
 @pytest.fixture
@@ -173,3 +213,74 @@ def test_cuda_kernel_matches_plain(cuda, b, h, kvh, sq, sk, d, causal,
     ref = attention_reference(q, k, v, **kw).float()
     atol, rtol = TOL[dtype]
     assert ((got.float() - ref).abs() <= atol + rtol * ref.abs()).all()
+
+
+# the backward's cases on the card: those of the forward, and rows with no
+# live key (causal, window 16, Sq > Sk + 15: rows 47.. see none), where the
+# kernel gives exactly 0
+CUDA_BWD_CASES = CUDA_CASES + [(1, 2, 2, 96, 32, 64, True, 16, 0.0)]
+CUDA_BWD_IDS = CUDA_IDS + ["masked-rows"]
+
+
+def _dead_rows(sq, sk, causal, window):
+    """Query rows that no key is live for."""
+    qp = np.arange(sq)[:, None]
+    kp = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= qp - kp < window
+    return ~keep.any(axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,softcap",
+                         CUDA_BWD_CASES, ids=CUDA_BWD_IDS)
+def test_cuda_backward_matches_plain(cuda, b, h, kvh, sq, sk, d, causal,
+                                     window, softcap, dtype):
+    """dq, dk, dv of the backward kernels against the plain version's
+    autograd, q, k, v as the model's transposed views: fp32 within 2e-5 of
+    max|plain|; bf16 elementwise within 1e-3 max|plain| + 1e-2 |plain|.
+    Rows with no live key take dO = 0 here (the plain version spreads such
+    a row evenly over the keys, the kernel gives it no gradient); with
+    their dO kept the kernel's dq there is exactly 0 and every grad is
+    finite."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype).transpose(1, 2)
+               .contiguous().transpose(1, 2).requires_grad_()
+               for a in _qkv(b, h, kvh, sq, sk, d))
+    dead = torch.from_numpy(_dead_rows(sq, sk, causal, window)).to(cuda)
+    dout = torch.from_numpy(_dout(b, h, sq, d)).to(cuda, dtype)
+    before = dict(ops.BWD_LAUNCHES)
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v),
+                              dout.masked_fill(dead[:, None], 0))
+    torch.cuda.synchronize()
+    assert ops.BWD_LAUNCHES == {n: c + 1 for n, c in before.items()}
+    ref_out = attention_reference(q, k, v, **kw)
+    want = torch.autograd.grad(ref_out, (q, k, v),
+                               dout.masked_fill(dead[:, None], 0))
+    atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (1e-3, 1e-2)
+    for name, gt, wt in zip("qkv", got, want):
+        gt, wt = gt.float(), wt.float()
+        scale = wt.abs().max()
+        assert ((gt - wt).abs() <= atol * scale + rtol * wt.abs()).all(), \
+            (name, (gt - wt).abs().max().item(), scale.item())
+    if dead.any():
+        out = ops.flash_attention(q, k, v, **kw)
+        full = torch.autograd.grad(out, (q, k, v), dout)
+        assert all(torch.isfinite(t).all() for t in full)
+        assert (full[0][:, :, dead] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_no_grad_skips_the_lse(cuda):
+    """Without grad the forward runs alone (serving: no log-sum-exp, no
+    autograd node); with grad its output carries the backward."""
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _qkv(1, 2, 2, 64, 64, 64))
+    assert ops.flash_attention(q, k, v).grad_fn is None
+    out = ops.flash_attention(q.requires_grad_(), k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"

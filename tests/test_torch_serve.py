@@ -179,7 +179,8 @@ def test_embed_and_head_match(arch):
     toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, (2, 5))
     pos = np.tile(np.arange(5), (2, 1))
     ref = JM.embed_tokens(jcfg, jparams, jnp.asarray(toks), jnp.asarray(pos))
-    got = PM.embed_tokens(pcfg, params, torch.from_numpy(toks))
+    got = PM.embed_tokens(pcfg, params, torch.from_numpy(toks),
+                          torch.from_numpy(pos))
     _close(got, ref, float(jnp.abs(ref).max()), 1e-6, "embed")
     h = np.random.default_rng(4).standard_normal(
         (2, 5, jcfg.d_model)).astype(np.float32)

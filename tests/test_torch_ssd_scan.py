@@ -315,3 +315,20 @@ def test_cuda_bf16_kernel_narrow_copies(cuda, off):
     y_ref, h_ref = ssd_scan_reference(x, dt, a, bm, cm)
     _check_close(y, y_ref, 1e-2)
     _check_close(h_final, h_ref, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_of", ["x", "dt", "a", "b", "c"])
+def test_cuda_kernel_refuses_a_gradient(cuda, grad_of):
+    """The kernel has no backward yet: on CUDA an input that requires grad
+    raises under grad mode, and runs without it (torch.no_grad)."""
+    x, dt, a, b, c = (torch.from_numpy(t).to(cuda)
+                      for t in _inputs(1, 2, 64, 32, 16))
+    inputs = dict(x=x, dt=dt, a=a, b=b, c=c)
+    inputs[grad_of].requires_grad_()
+    before = ops.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_scan(**inputs)
+    with torch.no_grad():
+        ops.ssd_scan(**inputs)
+    assert ops.LAUNCHES == before + 1
