@@ -51,11 +51,15 @@ Phases, each printing one JSON line:
              version's autograd on the card, dq, dk, dv for a seeded dO: the
              cases of ``tests/test_kernels.py``, head dims 64, 100 and 128, a
              ragged length, rows with no live key, and the model's
-             transposed views, in fp32 (|err| <= 2e-5 max|plain|) and bf16
-             (|err| <= 1e-3 max|plain| + 1e-2 |plain|); times of the forward
-             with its log-sum-exp, of each backward kernel, of the plain
-             backward and of SDPA's at the gpt-1.3b training shape, beside
-             the least time the card could take;
+             transposed views, in fp32 (the FMA kernels; |err| <= 2e-5
+             max|plain|) and bf16 (the tensor-core kernels; |err| <= 1e-3
+             max|plain| + 1e-2 |plain|), and in bf16 also gemma-2b's D 256
+             (MQA) and vit-e's D 112 (non-causal, ragged S 257) as views;
+             each case must launch its dtype's variant once per kernel; the
+             HMMA count of both bf16 kernels' SASS (it fails at 0); times of
+             the forward with its log-sum-exp, of each backward kernel, of
+             the plain backward and of SDPA's at the gpt-1.3b training
+             shape, beside the least time the card could take;
 9. train_grads — fp32, TF32 off: the loss and every param grad of reduced
              gpt-1.3b and bert-large through the kernels on the card against
              the same on the CPU (plain versions), within 1e-4 of each
@@ -67,7 +71,8 @@ Phases, each printing one JSON line:
              tokens from ``SyntheticStream``: 1 warm-up step and 3 timed
              ones; finite losses, every rank's shard of every unit changed
              by each step, and the flash launches the plan, the schedule
-             and the per-layer checkpointing predict.
+             and the per-layer checkpointing predict, every backward launch
+             on the bf16 tensor-core kernels.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches on its
 main-path run (serving for the forwards, phase ``train`` for the
@@ -172,6 +177,12 @@ BWD_CASES = dict(
         ("d128-ragged-1000", (HEAD_DIM_CASES["ragged-1000"], False)),
         ("masked-rows", ((1, 2, 2, 96, 32, 64, True, 16, 0.0), False)),
         ("gpt-1.3b-views", (TRAIN_SHAPE, True))])
+# bf16 only: the largest head dim, and vit-e's (paper_models.py: 16 heads
+# of 112, non-causal), at vit-g-d104's ragged length
+BWD_BF16_CASES = {
+    "gemma-2b-d256-views": (HEAD_DIM_CASES["gemma-2b-d256"], True),
+    "vit-e-d112-views": ((2, 16, 16, 257, 257, 112, False, 0, 0.0), True),
+}
 # gpt-1.3b training: two ranks on the one card, global batch 10, seq 512
 TRAIN_ARCH, TRAIN_SEQ = "gpt-1.3b", 512
 TRAIN_RANKS = [("rank0", 4, 2, 0.6), ("rank1", 2, 1, 0.4)]   # m, ell, r
@@ -213,7 +224,8 @@ def _ptxas_usage(logs: dict) -> dict:
         for line in log.splitlines():
             hit = re.search(r"Compiling entry function '(\S+)'", line)
             if hit:
-                m = re.search(r"(flash_fwd_kernel_\w+?|flash_bwd_\w+?_kernel|"
+                m = re.search(r"(flash_fwd_kernel_\w+?|"
+                              r"flash_bwd_\w+?_kernel(?:_mma)?|"
                               r"ssd_scan_kernel\w*?)I(\w+?)EEv", hit[1])
                 func = f"{m[1]}<{m[2]}>" if m else hit[1]
                 usage[func] = ""
@@ -303,8 +315,9 @@ def _sass_counts(name: str) -> dict:
     for line in sass.splitlines():
         hit = re.search(r"Function : (\S+)", line)
         if hit:
-            m = re.search(r"(flash_fwd_kernel_\w+?|ssd_scan_kernel\w*?)I",
-                          hit[1])
+            m = re.search(r"(flash_fwd_kernel_\w+?|"
+                          r"flash_bwd_\w+?_kernel(?:_mma)?|"
+                          r"ssd_scan_kernel\w*?)I", hit[1])
             func = m[1] if m else hit[1][:40]
             counts.setdefault(func, {"HMMA": 0, "HGMMA": 0})
         elif func is not None:
@@ -659,12 +672,18 @@ def _flash_bwd_compare(name, case, views, dtype) -> dict:
     dout_live = dout.masked_fill(dead[:, None], 0)
     kw = dict(causal=causal, window=window, softcap=softcap)
     before = dict(flash_ops.BWD_LAUNCHES)
+    before_var = dict(flash_ops.BWD_VARIANT_LAUNCHES)
     got = torch.autograd.grad(flash_ops.flash_attention(q, k, v, **kw),
                               (q, k, v), dout_live)
     torch.cuda.synchronize()
-    if flash_ops.BWD_LAUNCHES != {n: c + 1 for n, c in before.items()}:
+    variant = flash_ops.VARIANTS[dtype]
+    want_var = {n: c + 2 * (n == variant) for n, c in before_var.items()}
+    if flash_ops.BWD_LAUNCHES != {n: c + 1 for n, c in before.items()} or \
+            flash_ops.BWD_VARIANT_LAUNCHES != want_var:
         raise AssertionError(f"flash backward {name}: launches "
-                             f"{flash_ops.BWD_LAUNCHES} after {before}")
+                             f"{flash_ops.BWD_LAUNCHES} "
+                             f"{flash_ops.BWD_VARIANT_LAUNCHES} after "
+                             f"{before} {before_var}")
     want = torch.autograd.grad(attention_reference(q, k, v, **kw),
                                (q, k, v), dout_live)
     err = _grads_close(f"{name} {dtype}", got, want, dtype)
@@ -730,10 +749,18 @@ def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
 def phase_flash_bwd() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sass = _sass_counts("flash_attention_bwd")
+    if sass is not None:
+        for kern in ("flash_bwd_dq_kernel_mma", "flash_bwd_dkdv_kernel_mma"):
+            if sass.get(kern, {}).get("HMMA", 0) == 0:
+                raise AssertionError(f"{kern}: no HMMA instructions in its "
+                                     f"SASS: {sass}")
     errs, main = {}, None
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
-        for name, (case, views) in BWD_CASES.items():
+        cases = dict(BWD_CASES, **(BWD_BF16_CASES
+                                   if dtype == torch.bfloat16 else {}))
+        for name, (case, views) in cases.items():
             err = _flash_bwd_compare(name, case, views, dtype)
             errs[f"{name}-{tag}"] = err["rel"]
             if case == TRAIN_SHAPE and dtype == torch.bfloat16:
@@ -770,7 +797,8 @@ def phase_flash_bwd() -> dict:
               for w in ("dq", "dkdv", "both")}
     emit({"phase": "flash_bwd", "max_rel_err": errs,
           "train_shape_max_abs_err": main, "shape": TRAIN_SHAPE,
-          "dtype": "bfloat16", "fwd_with_lse_ms": fwd_ms,
+          "dtype": "bfloat16", "variant": flash_ops.VARIANTS[dtype],
+          "sass": sass, "fwd_with_lse_ms": fwd_ms,
           "fwd_with_lse_bound_ms": fwd_bound, "bwd_ms": bwd_ms,
           "bwd_ms_repeat": bwd_ms_2, "bwd_kernel_ms": by_kernel,
           "bwd_bound_ms": bounds["both"][0],
@@ -783,7 +811,8 @@ def phase_flash_bwd() -> dict:
           "ptxas": {k: v for k, v in PTXAS.items()
                     if k.startswith("flash_bwd")}})
     main_err = {"dq": main["q"], "dkdv": max(main["k"], main["v"])}
-    return {w: {"max_abs_err": main_err[w],
+    return {w: {"variant": flash_ops.VARIANTS[dtype],
+                "max_abs_err": main_err[w],
                 "ms": by_kernel[f"flash_bwd_{w}_kernel"],
                 "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
                 "bound_ms": bounds[w][0], "bound_by": bounds[w][1]}
@@ -882,6 +911,8 @@ def phase_train() -> dict:
     flash_ops.VARIANT_LAUNCHES.update(
         dict.fromkeys(flash_ops.VARIANT_LAUNCHES, 0))
     flash_ops.BWD_LAUNCHES.update(dict.fromkeys(flash_ops.BWD_LAUNCHES, 0))
+    flash_ops.BWD_VARIANT_LAUNCHES.update(
+        dict.fromkeys(flash_ops.BWD_VARIANT_LAUNCHES, 0))
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     units = [g.name for g in engine.trainer.groups]
@@ -915,9 +946,12 @@ def phase_train() -> dict:
                 **dict(flash_ops.BWD_LAUNCHES)}
     want = {"flash_attention": 2 * n, "flash_bwd_dq": n,
             "flash_bwd_dkdv": n}
-    if launches != want or flash_ops.VARIANT_LAUNCHES["bf16-mma"] != 2 * n:
-        raise AssertionError(f"train: flash launches {launches} "
-                             f"({flash_ops.VARIANT_LAUNCHES}), expected "
+    want_var = {"fp32-fma": 0, "bf16-mma": 2 * n}
+    if launches != want or flash_ops.VARIANT_LAUNCHES != want_var or \
+            flash_ops.BWD_VARIANT_LAUNCHES != want_var:
+        raise AssertionError(f"train: flash launches {launches} (forward "
+                             f"{flash_ops.VARIANT_LAUNCHES}, backward "
+                             f"{flash_ops.BWD_VARIANT_LAUNCHES}), expected "
                              f"{want}, all bf16")
     mean_ms = float(np.mean(step_ms))
     samples_s = plan.global_batch / (mean_ms / 1e3)
@@ -931,6 +965,9 @@ def phase_train() -> dict:
           "tokens_s": samples_s * TRAIN_SEQ, "peak_mem_gib": peak / 2**30,
           "launches_per_step": {k: v // TRAIN_STEPS
                                 for k, v in launches.items()},
+          "bwd_variant_launches_per_step": {
+              k: v // TRAIN_STEPS
+              for k, v in flash_ops.BWD_VARIANT_LAUNCHES.items()},
           "collectives": dict(engine.trainer.substrate.stats),
           "memory": engine.memory_report(state).splitlines()})
     del engine, state

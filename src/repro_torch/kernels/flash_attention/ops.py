@@ -14,8 +14,10 @@ Where grad mode is on and q, k or v requires grad, CUDA tensors go
 through :class:`FlashAttention`, a ``torch.autograd.Function``: its
 forward launches the forward kernel, which then also writes each row's
 log-sum-exp, and its backward launches the two backward kernels of
-``csrc/flash_attention_bwd.cu`` (dQ, then dK and dV).  CPU tensors take
-the plain version through plain autograd.
+``csrc/flash_attention_bwd.cu`` (dQ, then dK and dV), picked by dtype as
+the forward's: bf16 on tensor cores (``bf16-mma``), fp32 on scalar FMAs
+(``fp32-fma``).  CPU tensors take the plain version through plain
+autograd.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
 #: Launches of the backward kernels (both dtypes), apart from the forward
 #: ones above.
 BWD_LAUNCHES = {"flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+#: The backward kernels' launches (each of the two counts) by variant.
+BWD_VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
 
 #: Head dims both kernels take: multiples of 4 from 8 to 256 (the bf16
 #: kernel pads to a multiple of 16, the fp32 one to 32, with zeros).
@@ -184,7 +188,9 @@ def _forward(q, k, v, causal, window, softcap, with_lse):
 def _backward(q, k, v, lse, dout, causal, window, softcap):
     """Launch the dq kernel, then the dkdv kernel; returns (dq, dk, dv) in
     q's dtype, each laid out as its input (``empty_like``).  dO is made
-    contiguous here."""
+    contiguous here.  The bf16 kernels copy by the forward's rule
+    (:func:`_copy_width`), which the library applies to the same
+    pointers and strides."""
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"flash_attention backward: grad {tuple(dout.shape)}"
                          f" {dout.dtype}, output {tuple(q.shape)} {q.dtype}")
@@ -203,6 +209,9 @@ def _backward(q, k, v, lse, dout, causal, window, softcap):
     ptrs = [t.data_ptr() for t in (q, k, v, dout)] + [
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        _copy_width(tensors[:4], ptrs[:4])
+    variant = VARIANTS[q.dtype]
     with torch.cuda.device(q.device):
         stream = _stream(q.device)
         for name, fn in _bwd_fns().items():     # dq first: it writes delta
@@ -213,6 +222,7 @@ def _backward(q, k, v, lse, dout, causal, window, softcap):
                 raise RuntimeError(f"flash_attention backward kernel {name} "
                                    f"launch failed: CUDA error {rc}")
             BWD_LAUNCHES[name] += 1
+            BWD_VARIANT_LAUNCHES[variant] += 1
     return dq, dk, dv
 
 

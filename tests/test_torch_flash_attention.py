@@ -185,6 +185,110 @@ def test_plain_grads_match_jax_dense_attention(b, h, kvh, sq, sk, d, causal,
         assert err <= 2e-5 * np.abs(wt).max(), (name, err)
 
 
+# the backward's small cases on the CPU: those of the forward, gemma-2b's
+# MQA head of 256, vit-e's 112, and rows with no live key
+BWD_CASES = FLASH_CASES + [
+    (1, 8, 1, 128, 128, 256, True, 0, 0.0),
+    (1, 4, 4, 96, 96, 112, False, 0, 0.0),
+    (1, 2, 2, 96, 32, 64, True, 16, 0.0),
+]
+BWD_IDS = CASE_IDS + ["d256-mqa", "d112", "masked-rows"]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_bf16_backward(q, k, v, dout, causal, window, softcap,
+                           lo=True):
+    """dq, dk, dv with the roundings of the bf16 tensor-core backward
+    kernels: bf16 q, k, v, dO; S and dP products of those in fp32; P and
+    D_i = sum_j P dP in fp32; P and dS enter their products as hi =
+    bf16(x) plus lo = bf16(x - hi) (hi alone if not ``lo``); fp32 sums (a
+    GQA group's too); each grad rounded to bf16 once."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    rep = h // kvh
+    q, k, v, dout = (_bf16(t) for t in (q, k, v, dout))
+    k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    scale = d ** -0.5
+    x = q @ k.transpose(-1, -2) * scale
+    dcap = torch.ones_like(x)
+    if softcap > 0:
+        th = torch.tanh(x / softcap)
+        x, dcap = softcap * th, 1 - th * th
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live &= kp <= qp
+    if window > 0:
+        live &= qp - kp < window
+    lse = torch.logsumexp(x.masked_fill(~live, float("-inf")), dim=-1,
+                          keepdim=True)
+    p = torch.where(live, torch.exp(x - lse), torch.zeros(()))
+    dp = dout @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * dcap
+
+    def hilo(t):
+        hi = _bf16(t)
+        return (hi, _bf16(t - hi)) if lo else (hi,)
+
+    def group_sum(t):
+        return t.view(b, kvh, rep, sk, d).sum(2)
+    dq = sum(part @ k for part in hilo(ds)) * scale
+    dk = group_sum(sum(part.transpose(-1, -2) @ q
+                       for part in hilo(ds))) * scale
+    dv = group_sum(sum(part.transpose(-1, -2) @ dout for part in hilo(p)))
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _bf16_design_excess(case, lo=True):
+    """The emulated bf16 backward's largest error over the tolerance
+    (1e-3 max|plain| + 1e-2 |plain|) of dq, dk, dv on ``case``, against
+    the plain version's autograd on the same bf16 inputs; rows with no
+    live key take dO = 0, as on the card."""
+    b, h, kvh, sq, sk, d, causal, window, softcap = case
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(b, h, kvh, sq, sk, d))
+    dead = torch.from_numpy(_dead_rows(sq, sk, causal, window))
+    dout = torch.from_numpy(_dout(b, h, sq, d)).to(torch.bfloat16) \
+        .masked_fill(dead[:, None], 0)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _emulate_bf16_backward(q, k, v, dout, lo=lo, **kw)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(attention_reference(q, k, v, **kw),
+                               (q, k, v), dout)
+    excess = 0.0
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype == torch.bfloat16
+        gt, wt = gt.float(), wt.float()
+        scale = wt.abs().max()
+        assert scale > 0
+        excess = max(excess, ((gt - wt).abs()
+                              / (1e-3 * scale + 1e-2 * wt.abs())).max().item())
+    return excess
+
+
+def test_bf16_backward_design_needs_the_lo_planes():
+    """Without the lo planes of P and dS (each product on bf16(x) alone)
+    the emulated design misses the bf16 tolerance: the split is needed."""
+    assert max(_bf16_design_excess(c, lo=False) for c in BWD_CASES) > 1.0
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,softcap",
+                         BWD_CASES, ids=BWD_IDS)
+def test_bf16_backward_design_within_tolerance(b, h, kvh, sq, sk, d, causal,
+                                               window, softcap):
+    """The bf16 backward kernels' numerical design, emulated in plain
+    torch on the CPU, against the plain version's autograd on the same
+    bf16 inputs: each grad elementwise within 1e-3 max|plain| + 1e-2
+    |plain|, the tolerance the kernels are held to on the card.  Rows with
+    no live key take dO = 0, as there."""
+    case = (b, h, kvh, sq, sk, d, causal, window, softcap)
+    assert _bf16_design_excess(case) <= 1.0
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -254,11 +358,15 @@ def test_cuda_backward_matches_plain(cuda, b, h, kvh, sq, sk, d, causal,
     dead = torch.from_numpy(_dead_rows(sq, sk, causal, window)).to(cuda)
     dout = torch.from_numpy(_dout(b, h, sq, d)).to(cuda, dtype)
     before = dict(ops.BWD_LAUNCHES)
+    before_var = dict(ops.BWD_VARIANT_LAUNCHES)
     out = ops.flash_attention(q, k, v, **kw)
     got = torch.autograd.grad(out, (q, k, v),
                               dout.masked_fill(dead[:, None], 0))
     torch.cuda.synchronize()
     assert ops.BWD_LAUNCHES == {n: c + 1 for n, c in before.items()}
+    # both kernels of the dtype's variant: bf16 on tensor cores, fp32 FMAs
+    assert ops.BWD_VARIANT_LAUNCHES == {
+        n: c + 2 * (n == ops.VARIANTS[dtype]) for n, c in before_var.items()}
     ref_out = attention_reference(q, k, v, **kw)
     want = torch.autograd.grad(ref_out, (q, k, v),
                                dout.masked_fill(dead[:, None], 0))
@@ -273,6 +381,37 @@ def test_cuda_backward_matches_plain(cuda, b, h, kvh, sq, sk, d, causal,
         full = torch.autograd.grad(out, (q, k, v), dout)
         assert all(torch.isfinite(t).all() for t in full)
         assert (full[0][:, :, dead] == 0).all()
+
+
+# one head dim for each width the bf16 kernels pad to (16 .. 256), most of
+# them padded: each width is its own kernel instance
+BF16_BWD_DIMS = (8, 28, 44, 64, 76, 96, 108, 128, 140, 160, 172, 192, 204,
+                 224, 236, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", BF16_BWD_DIMS)
+def test_cuda_bf16_backward_every_padded_width(cuda, d):
+    """The bf16 tensor-core backward at every padded head dim, GQA, a
+    ragged length past two tiles, causal at even widths: dq, dk, dv
+    within 1e-3 max|plain| + 1e-2 |plain| of the plain version's
+    autograd, on the bf16-mma variant."""
+    kw = dict(causal=d % 8 == 0, window=0, softcap=0.0)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16).requires_grad_()
+               for a in _qkv(1, 4, 2, 130, 130, d))
+    dout = torch.from_numpy(_dout(1, 4, 130, d)).to(cuda, torch.bfloat16)
+    before = ops.BWD_VARIANT_LAUNCHES["bf16-mma"]
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, **kw), (q, k, v),
+                              dout)
+    torch.cuda.synchronize()
+    assert ops.BWD_VARIANT_LAUNCHES["bf16-mma"] == before + 2
+    want = torch.autograd.grad(attention_reference(q, k, v, **kw), (q, k, v),
+                               dout)
+    for name, gt, wt in zip("qkv", got, want):
+        gt, wt = gt.float(), wt.float()
+        scale = wt.abs().max()
+        assert ((gt - wt).abs() <= 1e-3 * scale + 1e-2 * wt.abs()).all(), \
+            (name, (gt - wt).abs().max().item(), scale.item())
 
 
 @pytest.mark.cuda
