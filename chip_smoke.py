@@ -72,24 +72,49 @@ Phases, each printing one JSON line:
              ones; finite losses, every rank's shard of every unit changed
              by each step, and the flash launches the plan, the schedule
              and the per-layer checkpointing predict, every backward launch
-             on the bf16 tensor-core kernels.
+             on the bf16 tensor-core kernels;
+11. profile — the profiler (``core/profiler.py``) on the card: one
+             gpt-1.3b layer at seq 512 in bf16, forward and backward, timed
+             by CUDA events at m = 1, 2, 3, 4, 6, 8, 12; the piecewise fit
+             on m <= 6 and its error at m = 8 and 12 (the paper's App. A.3
+             check; printed, not a gate); then ``profiled_cluster_model``
+             for the paper's Cluster A, solved by ``auto_solve`` at batch
+             128: fails on an infeasible plan, a sample that is not finite
+             and positive, or a flash launch off the bf16 tensor-core
+             kernels;
+12. plan_train — the training launcher's own functions
+             (``launch.train.solve_plan``, ``_train_loop``) on gpt-1.3b at
+             full width and depth: the plan the port's planner solves for
+             Cluster A at batch 128 (eight ranks of uneven m and ell on the
+             one card), 1 warm-up step and 2 timed ones; finite losses,
+             every rank's shard of every unit changed by each step, and the
+             flash launches the plan predicts, all bf16; the plan's
+             predicted iteration (for Cluster A's GPUs) beside the measured
+             step; then reduced gpt-1.3b on the card: a checkpoint of the
+             exported state saved after 2 steps, loaded, imported into a
+             fresh engine, and its third step's loss equal to the loss of
+             3 steps straight.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches on its
 main-path run (serving for the forwards, phase ``train`` for the
-backward), its error and its times, and last
+backward; a planned step's launches beside them), its error and its
+times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,11 +124,16 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.checkpoint import checkpointing  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import fsdp  # noqa: E402
+from repro_torch.core import device_specs  # noqa: E402
+from repro_torch.core import profiler  # noqa: E402
+from repro_torch.core.cost_model import fit_piecewise  # noqa: E402
 from repro_torch.core.engine import build_train_step  # noqa: E402
 from repro_torch.core.partition import Plan, RankPlan  # noqa: E402
+from repro_torch.core.planner import auto_solve  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -111,6 +141,7 @@ from repro_torch.kernels.flash_attention.ref import \
     attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
@@ -187,6 +218,17 @@ BWD_BF16_CASES = {
 TRAIN_ARCH, TRAIN_SEQ = "gpt-1.3b", 512
 TRAIN_RANKS = [("rank0", 4, 2, 0.6), ("rank1", 2, 1, 0.4)]   # m, ell, r
 TRAIN_STEPS = 3
+# the profiler's App. A.3 check: fit on these microbatch sizes, hold out
+# the rest (benchmarks/model_accuracy.py's split)
+PROFILE_FIT_MS, PROFILE_HELD_MS = (1, 2, 3, 4, 6), (8, 12)
+# planned training: the launcher's plan for the paper's Cluster A at
+# Table 4's global batch, 1 warm-up step and 2 timed ones
+PLAN_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", "128",
+             "--runtime", "mpmd", "--cluster", "cluster-a"]
+PLAN_STEPS = 2
+# the checkpoint resume: reduced gpt-1.3b on the same cluster's plan
+RESUME_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--seq", "64", "--batch",
+               "16", "--cluster", "cluster-a"]
 
 
 def emit(obj) -> None:
@@ -884,6 +926,46 @@ def phase_train_grads() -> dict:
     return res
 
 
+def _zero_flash_counts() -> None:
+    flash_ops.LAUNCHES = 0
+    flash_ops.VARIANT_LAUNCHES.update(
+        dict.fromkeys(flash_ops.VARIANT_LAUNCHES, 0))
+    flash_ops.BWD_LAUNCHES.update(dict.fromkeys(flash_ops.BWD_LAUNCHES, 0))
+    flash_ops.BWD_VARIANT_LAUNCHES.update(
+        dict.fromkeys(flash_ops.BWD_VARIANT_LAUNCHES, 0))
+
+
+def _rank_calls(schedule, plan: Plan) -> int:
+    """Rank calls a step makes: each round, each rank with microbatches
+    in it."""
+    chunks = schedule.chunks(max(plan.ell_pad, 1))
+    calls, lo = 0, 0
+    for size in chunks:
+        calls += sum(1 for r in plan.ranks
+                     if min(lo + size, r.ell) > min(lo, r.ell))
+        lo += size
+    return calls
+
+
+def _check_train_launches(phase: str, n: int) -> dict:
+    """The flash launches since the counts were zeroed: each of ``n``
+    layer calls (rank calls times layers) runs the layer's forward twice
+    (checkpointed) and its backward once, all on the bf16 tensor-core
+    kernels."""
+    launches = {"flash_attention": flash_ops.LAUNCHES,
+                **dict(flash_ops.BWD_LAUNCHES)}
+    want = {"flash_attention": 2 * n, "flash_bwd_dq": n,
+            "flash_bwd_dkdv": n}
+    want_var = {"fp32-fma": 0, "bf16-mma": 2 * n}
+    if launches != want or flash_ops.VARIANT_LAUNCHES != want_var or \
+            flash_ops.BWD_VARIANT_LAUNCHES != want_var:
+        raise AssertionError(f"{phase}: flash launches {launches} (forward "
+                             f"{flash_ops.VARIANT_LAUNCHES}, backward "
+                             f"{flash_ops.BWD_VARIANT_LAUNCHES}), expected "
+                             f"{want}, all bf16")
+    return launches
+
+
 def _train_plan() -> Plan:
     ranks = [RankPlan(i, dev, m=m, ell=ell, state_ratio=r)
              for i, (dev, m, ell, r) in enumerate(TRAIN_RANKS)]
@@ -907,12 +989,7 @@ def phase_train() -> dict:
               for i in range(TRAIN_STEPS + 1)]
     state, warm_loss = engine.step(state, blocks[0])
     torch.cuda.synchronize()
-    flash_ops.LAUNCHES = 0
-    flash_ops.VARIANT_LAUNCHES.update(
-        dict.fromkeys(flash_ops.VARIANT_LAUNCHES, 0))
-    flash_ops.BWD_LAUNCHES.update(dict.fromkeys(flash_ops.BWD_LAUNCHES, 0))
-    flash_ops.BWD_VARIANT_LAUNCHES.update(
-        dict.fromkeys(flash_ops.BWD_VARIANT_LAUNCHES, 0))
+    _zero_flash_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     units = [g.name for g in engine.trainer.groups]
@@ -932,27 +1009,9 @@ def phase_train() -> dict:
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses + [warm_loss])):
         raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
-    # rank calls per step: each round, each rank with microbatches in it;
-    # each call runs every layer's forward twice (checkpointed) and its
-    # backward once
-    chunks = engine.schedule.chunks(max(plan.ell_pad, 1))
-    calls, lo = 0, 0
-    for size in chunks:
-        calls += sum(1 for r in plan.ranks
-                     if min(lo + size, r.ell) > min(lo, r.ell))
-        lo += size
-    n = TRAIN_STEPS * calls * cfg.n_layers
-    launches = {"flash_attention": flash_ops.LAUNCHES,
-                **dict(flash_ops.BWD_LAUNCHES)}
-    want = {"flash_attention": 2 * n, "flash_bwd_dq": n,
-            "flash_bwd_dkdv": n}
-    want_var = {"fp32-fma": 0, "bf16-mma": 2 * n}
-    if launches != want or flash_ops.VARIANT_LAUNCHES != want_var or \
-            flash_ops.BWD_VARIANT_LAUNCHES != want_var:
-        raise AssertionError(f"train: flash launches {launches} (forward "
-                             f"{flash_ops.VARIANT_LAUNCHES}, backward "
-                             f"{flash_ops.BWD_VARIANT_LAUNCHES}), expected "
-                             f"{want}, all bf16")
+    launches = _check_train_launches(
+        "train", TRAIN_STEPS * _rank_calls(engine.schedule, plan) *
+        cfg.n_layers)
     mean_ms = float(np.mean(step_ms))
     samples_s = plan.global_batch / (mean_ms / 1e3)
     emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
@@ -975,6 +1034,222 @@ def phase_train() -> dict:
     return {k: v for k, v in launches.items() if k != "flash_attention"}
 
 
+def _held_out_errors(samples) -> dict:
+    """App. A.3: fit on PROFILE_FIT_MS, |relative error| at the rest."""
+    t = dict(samples)
+    model = fit_piecewise([(m, t[m]) for m in PROFILE_FIT_MS])
+    return {m: abs(model.one(m) - t[m]) / t[m] for m in PROFILE_HELD_MS}
+
+
+def phase_profile() -> dict:
+    """The profiler on the card: one gpt-1.3b layer at seq 512, forward
+    and backward, fit and held-out error; then the paper's workflow,
+    ``profiled_cluster_model`` for Cluster A, solved at batch 128."""
+    cfg = get_arch(TRAIN_ARCH)
+    ms = PROFILE_FIT_MS + PROFILE_HELD_MS
+    _zero_flash_counts()
+    fwd = profiler.profile_layer_forward(cfg, TRAIN_SEQ, ms=ms)
+    bwd = profiler.profile_layer_backward(cfg, TRAIN_SEQ, ms=ms)
+    cm = profiler.profiled_cluster_model(device_specs.cluster_a(), cfg,
+                                         TRAIN_SEQ)
+    torch.cuda.synchronize()
+    for name, samples in (("forward", fwd), ("backward", bwd)):
+        if not all(np.isfinite(t) and t > 0 for _, t in samples):
+            raise AssertionError(f"profile: {name} samples {samples}")
+    # every timed call and its warm-up: the sweep above, then the
+    # cost model's own sweep (PROFILE_FIT_MS, 3 repeats)
+    # (the forward sweeps' calls and the backward sweeps' forwards; the
+    # backward count has one launch of each of its two kernels)
+    calls = (1 + 3) * (len(ms) + len(PROFILE_FIT_MS))
+    want = {"fp32-fma": 0, "bf16-mma": 2 * calls}
+    if flash_ops.VARIANT_LAUNCHES != want or \
+            flash_ops.BWD_VARIANT_LAUNCHES != want:
+        raise AssertionError(
+            f"profile: flash launches forward {flash_ops.VARIANT_LAUNCHES},"
+            f" backward {flash_ops.BWD_VARIANT_LAUNCHES}; expected {want} "
+            f"each")
+    plan = auto_solve(cm, 128)
+    if not plan.feasible:
+        raise AssertionError(f"profile: infeasible plan from the profiled "
+                             f"cost model: {plan.infeasible_reason}")
+    plan.check()
+    errs = {"forward": _held_out_errors(fwd),
+            "backward": _held_out_errors(bwd)}
+    every = [e for v in errs.values() for e in v.values()]
+    h100 = device_specs.H100
+    res = {"phase": "profile", "arch": cfg.name, "seq": TRAIN_SEQ,
+           "dtype": str(M.compute_dtype(cfg))[6:],
+           "fwd_ms": {m: t * 1e3 for m, t in fwd},
+           "bwd_ms": {m: t * 1e3 for m, t in bwd},
+           "held_out_rel_err": errs,
+           "held_out_mean_err": float(np.mean(every)),
+           "held_out_max_err": float(np.max(every)),
+           "flash_variant_launches": {
+               "forward": dict(flash_ops.VARIANT_LAUNCHES),
+               "backward": dict(flash_ops.BWD_VARIANT_LAUNCHES)},
+           "plan": [(r.device, r.m, r.ell, r.state_ratio)
+                    for r in plan.ranks],
+           "plan_predicted_iter_s": plan.predicted_iter_s,
+           "h100_spec": dataclasses.asdict(h100),
+           "h100_spec_memory_bytes": h100.memory_bytes,
+           "card_total_memory_bytes":
+               torch.cuda.get_device_properties(0).total_memory}
+    emit(res)
+    return res
+
+
+class _TimedEngine:
+    """The engine as the launcher's loop sees it, each step timed (host
+    clock around work that ends in a device synchronise), its loss kept,
+    and every rank's shard of every unit checked to change."""
+
+    def __init__(self, engine):
+        self.engine, self.cfg = engine, engine.cfg
+        self.step_ms, self.losses = [], []
+        # each rank's shard of each unit, cut to the unit's real elements
+        # (a small rank's shard may hold only the unit's zero padding)
+        self.real = {}
+        for g in engine.trainer.groups:
+            off = 0
+            for r, n in enumerate(g.layout.shard_sizes):
+                self.real[(r, g.name)] = max(0, min(n, g.layout.size - off))
+                off += n
+
+    def _sample(self, state, r, u):
+        return state[r][u]["p"][..., :self.real[(r, u)]].reshape(-1)[::1009]
+
+    def step(self, state, big):
+        before = {(r, u): self._sample(state, r, u).clone()
+                  for (r, u), n in self.real.items() if n}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = self.engine.step(state, big)
+        torch.cuda.synchronize()
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        self.losses.append(loss)
+        for (r, u), old in before.items():
+            if torch.equal(old, self._sample(state, r, u)):
+                raise AssertionError(f"rank {r} unit {u}: shard unchanged "
+                                     f"by a step")
+        return state, loss
+
+
+def _launcher_engine(args):
+    """``launch.train``'s plan and engine for ``args``, its printed plan
+    captured."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cfg, plan = train_launch.solve_plan(args)
+    return (train_launch.build_engine(args, cfg, plan), plan,
+            out.getvalue().splitlines())
+
+
+def _resume_check() -> dict:
+    """Reduced gpt-1.3b on the card: 3 steps straight, against 2 steps,
+    a checkpoint of the exported state saved and loaded, imported into a
+    fresh engine, and the third step."""
+    args = train_launch.parser().parse_args(RESUME_ARGS + ["--steps", "3"])
+    engine, plan, _ = _launcher_engine(args)
+    gen = torch.Generator(args.device).manual_seed(args.seed)
+    straight = _TimedEngine(engine)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_launch._train_loop(straight, args, plan,
+                                 state=engine.init_state(gen))
+    args.steps = 2
+    engine, plan, _ = _launcher_engine(args)
+    gen = torch.Generator(args.device).manual_seed(args.seed)
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_launch._train_loop(engine, args, plan,
+                                         state=engine.init_state(gen))
+    exported = engine.export_state(state)
+    with tempfile.TemporaryDirectory() as d:
+        checkpointing.save(d, exported["step"],
+                           [{k: exported[k] for k in "pmv"}],
+                           {"step": exported["step"]},
+                           meta={"plan": plan.to_json(),
+                                 "format": "exported"})
+        template = {k: exported[k] for k in "pmv"}
+        step, shards, rep, _ = checkpointing.load(d, template,
+                                                  {"step": None})
+    for k in "pmv":
+        for a, b in zip(fsdp.tree_flatten(shards[0][k])[0],
+                        fsdp.tree_flatten(exported[k])[0]):
+            if not np.array_equal(a, b.cpu().numpy()):
+                raise AssertionError(f"resume: loaded {k} differs")
+    fresh, _, _ = _launcher_engine(args)
+    state = fresh.import_state({"step": int(rep["step"]), **{
+        k: params_from_numpy(shards[0][k], args.device) for k in "pmv"}})
+    stream = SyntheticStream(DataConfig(fresh.cfg.vocab_size, args.seq,
+                                        seed=args.seed))
+    _, loss = fresh.step(state, stream.sample(2, plan.global_batch))
+    want = straight.losses[2]
+    if loss != want:
+        raise AssertionError(f"resume: step 3 loss {loss} after the "
+                             f"checkpoint, {want} straight")
+    return {"arch": fresh.cfg.name, "checkpoint_step": step,
+            "resumed_loss": loss, "straight_loss": want}
+
+
+def phase_plan_train() -> dict:
+    """gpt-1.3b at full width and depth on the plan ``launch.train``
+    solves for Cluster A at batch 128, through its ``_train_loop``: 1
+    warm-up step and 2 timed ones; then a checkpoint's exact resume."""
+    args = train_launch.parser().parse_args(
+        PLAN_ARGS + ["--steps", str(1 + PLAN_STEPS)])
+    engine, plan, summary = _launcher_engine(args)
+    cfg = engine.cfg
+    timed = _TimedEngine(engine)
+    t0 = time.perf_counter()
+    state = engine.init_state(
+        torch.Generator(args.device).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def on_step(step):
+        if step == 1:               # after the warm-up step
+            _zero_flash_counts()
+            torch.cuda.reset_peak_memory_stats()
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        state = train_launch._train_loop(timed, args, plan, state=state,
+                                         on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(timed.losses)):
+        raise AssertionError(f"plan_train: non-finite loss {timed.losses}")
+    launches = _check_train_launches(
+        "plan_train", PLAN_STEPS * _rank_calls(engine.schedule, plan) *
+        cfg.n_layers)
+    step_ms = timed.step_ms[1:]
+    mean_ms = float(np.mean(step_ms))
+    sim = engine.simulated_iteration_seconds()
+    res = {"phase": "plan_train", "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": sum(g.layout.size * g.count
+                         for g in engine.trainer.groups),
+           "seq": args.seq, "global_batch": plan.global_batch,
+           "cluster": plan.cluster, "schedule": args.ga_mode,
+           "plan": [(r.device, r.m, r.ell, r.state_ratio)
+                    for r in plan.ranks],
+           "plan_summary": summary, "printed": printed.getvalue()
+           .splitlines(), "init_s": init_s,
+           "warmup_loss": timed.losses[0], "losses": timed.losses[1:],
+           "step_ms": step_ms, "mean_step_ms": mean_ms,
+           "samples_s": plan.global_batch / (mean_ms / 1e3),
+           "tokens_s": plan.global_batch * args.seq / (mean_ms / 1e3),
+           "peak_mem_gib": peak / 2**30,
+           "predicted_iter_ms_cluster_a": sim["iteration_s"] * 1e3,
+           "predicted_samples_s_cluster_a": sim["throughput_samples_s"],
+           "launches_per_step": {k: v // PLAN_STEPS
+                                 for k, v in launches.items()},
+           "memory": engine.memory_report(state).splitlines()}
+    del engine, timed, state
+    torch.cuda.empty_cache()
+    res["resume"] = _resume_check()
+    emit(res)
+    return {k: v // PLAN_STEPS for k, v in launches.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -995,20 +1270,26 @@ def main() -> int:
     bwd = phase_flash_bwd()
     phase_train_grads()
     bwd_launches = phase_train()
+    phase_profile()
+    plan_launches = phase_plan_train()
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
-         "launches": flash_launches["flash_attention"], **flash},
+         "launches": flash_launches["flash_attention"],
+         "launches_planned_step": plan_launches["flash_attention"],
+         **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
                      "flash_attention_bwd.cu",
            "replaces": None,
            "differentiates":
                "src/repro/kernels/flash_attention/flash_attention.py:93",
-           "launches": bwd_launches[f"flash_bwd_{w}"], **bwd[w]}
+           "launches": bwd_launches[f"flash_bwd_{w}"],
+           "launches_planned_step": plan_launches[f"flash_bwd_{w}"],
+           **bwd[w]}
           for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",

@@ -117,8 +117,12 @@ class MpmdEngine(TrainEngine):
             s["step"] = int(exported.get("step", 0))
         return shards
 
+    # MPMD extras surfaced for the launcher
     def memory_report(self, state) -> str:
         return self.trainer.memory_report(state)
+
+    def simulated_iteration_seconds(self) -> Dict[str, float]:
+        return self.trainer.simulated_iteration_seconds()
 
 
 def build_train_step(cfg: ArchConfig, plan: Plan, *,

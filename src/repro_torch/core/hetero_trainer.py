@@ -141,7 +141,10 @@ class HeteroTrainer:
                              leaves: List[torch.Tensor], batch: Dict
                              ) -> Tuple[float, List[torch.Tensor]]:
         loss, _ = M.loss_fn(self.cfg, params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not use (the frontend stub's projection:
+        # ranks get no frontend embeddings) has a zero grad, as in the
+        # reference
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return float(loss.detach()), list(grads)
 
     def _round_loss_and_grads(self, full_params: Dict[str, Any], batches,
@@ -215,6 +218,16 @@ class HeteroTrainer:
                 adam_update(self.adam, st["p"], grad_shards[r][g.name],
                             st["m"], st["v"], shards[r]["step"])
         return shards, total_loss
+
+    # --- simulated wall-clock ----------------------------------------------
+    def simulated_iteration_seconds(self) -> Dict[str, float]:
+        """Timeline from the plan's cost model: what the plan predicts
+        for the cluster it was solved for, not a time of this device."""
+        return {
+            "layer_s": self.plan.predicted_layer_s,
+            "iteration_s": self.plan.predicted_iter_s,
+            "throughput_samples_s": self.plan.predicted_throughput,
+        }
 
     def memory_report(self, shards: List[Dict[str, Any]]) -> str:
         lines = []

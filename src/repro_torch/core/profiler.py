@@ -1,0 +1,233 @@
+"""Profiler (paper Sec. 3.1): measure single-layer latency at small batch
+sizes, fit the linear models the optimizer consumes.
+
+The port of ``repro.core.profiler``.  The timed layer is the model's own
+training layer, :func:`repro_torch.models.model.element_apply` over one
+element's fp32 params (the trainer's gathered params are fp32), fed
+activations in the compute dtype the training step feeds a layer
+(:func:`repro_torch.models.model.compute_dtype`: bf16 for the full-size
+models), so on the card it runs the kernels a training step runs.  The
+device decides how a call is timed: on CUDA tensors by CUDA events around
+the call, on CPU tensors by the host clock.  A first call warms up (on
+the card it builds the kernels, as the reference's compile call does);
+each sample is the minimum over ``repeats`` calls.
+
+Memory stays analytic (:func:`analytic_memory`): the paper's memory model
+is linear in m with coefficients from activation byte counts, which the
+model stats give exactly.
+
+:func:`refit_cluster_model` is the *online* half of the same machinery:
+per-rank ``(m, seconds)`` telemetry collected mid-training rebuilds the
+cost model through the identical :func:`fit_piecewise` path.  Its caller,
+the elastic runtime, and the process fleet that
+:func:`wallclock_cluster_model` bootstraps are not ported yet (ROADMAP
+queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.cost_model import (ClusterCostModel, CommModel,
+                                         DeviceCost, LatencyModel,
+                                         MemoryModel, analytic_latency_model,
+                                         fit_piecewise)
+from repro_torch.core.model_stats import build_model_stats
+from repro_torch.models import model as M
+
+#: The standard small-m profiling sweep (Sec. 3.1).  Shared by the
+#: offline profile below and the elastic runtime's active probe, so both
+#: fit on the same grid.
+PROFILE_MS: Tuple[int, ...] = (1, 2, 3, 4, 6, 8)
+
+
+def _layer(cfg: ArchConfig, device: torch.device):
+    """(spec, fp32 params of one element) of the first stage, drawn from a
+    seeded generator on ``device``."""
+    if cfg.is_hybrid:
+        raise NotImplementedError("profiling the hybrid (zamba2) shared "
+                                  "block: later slice")
+    spec = M.build_stages(cfg)[0]
+    gen = torch.Generator(device).manual_seed(0)
+    return spec, M._element_init(gen, cfg, spec, device)
+
+
+def _input(cfg: ArchConfig, m: int, seq: int, device: torch.device):
+    gen = torch.Generator(device).manual_seed(m)
+    x = torch.randn((m, seq, cfg.d_model), generator=gen, device=device)
+    pos = torch.arange(seq, device=device)[None].expand(m, seq)
+    return x.to(M.compute_dtype(cfg)), pos
+
+
+def _best_seconds(fn: Callable[[], object], device: torch.device,
+                  repeats: int) -> float:
+    """Minimum over ``repeats`` timed calls of ``fn``, after one warm-up
+    call: CUDA events on the card, the host clock on the CPU."""
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def profile_layer_forward(cfg: ArchConfig, seq: int,
+                          ms: Sequence[int] = PROFILE_MS,
+                          repeats: int = 3,
+                          device: torch.device | str = "cuda"
+                          ) -> List[Tuple[int, float]]:
+    """Measured (m, seconds) samples for one block's forward pass."""
+    device = M.resolve_device(device)
+    spec, bp = _layer(cfg, device)
+    out = []
+    for m in ms:
+        x, pos = _input(cfg, m, seq, device)
+
+        @torch.no_grad()
+        def fn():
+            return M.element_apply(cfg, spec, bp, x, pos)[0]
+
+        out.append((m, _best_seconds(fn, device, repeats)))
+    return out
+
+
+def profile_layer_backward(cfg: ArchConfig, seq: int,
+                           ms: Sequence[int] = PROFILE_MS,
+                           repeats: int = 3,
+                           device: torch.device | str = "cuda"
+                           ) -> List[Tuple[int, float]]:
+    """Measured (m, seconds) samples for one block's forward and backward:
+    the grads of ``sum(y*y)`` with respect to the block's params."""
+    device = M.resolve_device(device)
+    spec, bp = _layer(cfg, device)
+    bp = M.tree_map(bp, lambda _, t: t.requires_grad_(True))
+    leaves: List[torch.Tensor] = []
+    M.tree_map(bp, lambda _, t: leaves.append(t))
+    out = []
+    for m in ms:
+        x, pos = _input(cfg, m, seq, device)
+
+        def fn():
+            y, _ = M.element_apply(cfg, spec, bp, x, pos)
+            return torch.autograd.grad(torch.sum(y * y), leaves)
+
+        out.append((m, _best_seconds(fn, device, repeats)))
+    return out
+
+
+def fit_latency(samples: Sequence[Tuple[int, float]]) -> LatencyModel:
+    ms, ts = zip(*samples)
+    return LatencyModel(ms, ts)
+
+
+def refit_cluster_model(cm: ClusterCostModel,
+                        fwd_samples: Sequence[Sequence[Tuple[int, float]]],
+                        bwd_samples: Sequence[Sequence[Tuple[int, float]]],
+                        min_samples: int = 2) -> ClusterCostModel:
+    """Refit per-rank latency models from runtime telemetry.
+
+    ``fwd_samples[i]`` / ``bwd_samples[i]`` — rank *i*'s observed
+    ``(m, seconds)`` single-layer samples.  Ranks with fewer than
+    ``min_samples`` points keep their previous model, so a partial
+    telemetry window never degrades the planner's inputs.  Memory, head,
+    and comm models are latency-drift-invariant and carried over.
+
+    Returns a new :class:`~repro_torch.core.cost_model.ClusterCostModel`;
+    the input is not mutated.
+    """
+    per_rank = []
+    for i, dc in enumerate(cm.per_rank):
+        fs = list(fwd_samples[i]) if i < len(fwd_samples) else []
+        bs = list(bwd_samples[i]) if i < len(bwd_samples) else []
+        t_fwd = fit_piecewise(fs) if len(fs) >= min_samples else dc.t_fwd
+        t_bwd = fit_piecewise(bs) if len(bs) >= min_samples else dc.t_bwd
+        per_rank.append(DeviceCost(dc.spec, t_fwd, t_bwd, dc.memory,
+                                   dc.t_head))
+    return ClusterCostModel(cm.cluster, cm.model, per_rank, cm.comm)
+
+
+def wallclock_cluster_model(cluster, cfg: ArchConfig, seq: int,
+                            ms: Sequence[int] = PROFILE_MS,
+                            repeats: int = 2,
+                            device: torch.device | str = "cuda"
+                            ) -> ClusterCostModel:
+    """Cost model in *this device's* wall-clock units, no spec rescaling:
+    every rank gets the same measured fwd/bwd
+    :class:`~repro_torch.core.cost_model.LatencyModel`, memory stays
+    analytic and comm comes from the cluster spec.  The bootstrap of a
+    rank fleet whose ranks share one kind of silicon (the reference's
+    multiproc substrate)."""
+    fwd = profile_layer_forward(cfg, seq, ms=ms, repeats=repeats,
+                                device=device)
+    bwd = profile_layer_backward(cfg, seq, ms=ms, repeats=repeats,
+                                 device=device)
+    t_fwd = LatencyModel([m for m, _ in fwd], [t for _, t in fwd])
+    t_bwd = LatencyModel([m for m, _ in bwd], [t for _, t in bwd])
+    mem = analytic_memory(cfg, seq)
+    per_rank = [DeviceCost(spec, t_fwd, t_bwd, mem, None)
+                for spec in cluster.devices]
+    comm = CommModel(link_gbps=cluster.link_gbps * cluster.link_efficiency,
+                     n=cluster.n)
+    return ClusterCostModel(cluster, build_model_stats(cfg, seq),
+                            per_rank, comm)
+
+
+def analytic_memory(cfg: ArchConfig, seq: int) -> MemoryModel:
+    stats = build_model_stats(cfg, seq)
+    per_sample = sum(s.act_bytes * c for s, c in stats.layers) + \
+        max((s.workspace_bytes for s, _ in stats.layers), default=0)
+    return MemoryModel(1.5 * (1 << 30), per_sample)
+
+
+def profiled_cluster_model(cluster, cfg: ArchConfig, seq: int,
+                           ms: Sequence[int] = (1, 2, 3, 4, 6),
+                           repeats: int = 3,
+                           device: torch.device | str = "cuda"
+                           ) -> ClusterCostModel:
+    """The paper's full workflow with REAL measurements: profile one layer
+    on this device, fit the piecewise-linear models, and rescale per
+    device by peak-FLOPs ratio (each GPU's own profile in the paper; one
+    measured profile × spec ratios here).
+
+    Returns a :class:`~repro_torch.core.cost_model.ClusterCostModel` the
+    planner consumes exactly like the analytic one.
+    """
+    stats = build_model_stats(cfg, seq)
+    fwd_samples = profile_layer_forward(cfg, seq, ms=ms, repeats=repeats,
+                                        device=device)
+    bwd_samples = profile_layer_backward(cfg, seq, ms=ms, repeats=repeats,
+                                         device=device)
+    # measured throughput from the largest profiled point
+    m_big, t_big = fwd_samples[-1]
+    host_flops = stats.flops_fwd_per_sample() / max(stats.n_layers, 1) \
+        * m_big / t_big
+
+    per_rank = []
+    mem = analytic_memory(cfg, seq)
+    head_flops = stats.head_flops_fwd_per_sample() * 4.0
+    for spec in cluster.devices:
+        scale = host_flops / spec.peak_flops / 0.45   # spec at ~45% MFU
+        t_fwd = LatencyModel([m for m, _ in fwd_samples],
+                             [t * scale for _, t in fwd_samples])
+        t_bwd = LatencyModel([m for m, _ in bwd_samples],
+                             [t * scale for _, t in bwd_samples])
+        t_head = analytic_latency_model(head_flops, seq, spec) \
+            if head_flops else None
+        per_rank.append(DeviceCost(spec, t_fwd, t_bwd, mem, t_head))
+    comm = CommModel(link_gbps=cluster.link_gbps * cluster.link_efficiency,
+                     n=cluster.n)
+    return ClusterCostModel(cluster, stats, per_rank, comm)

@@ -1,10 +1,10 @@
 """Data pipeline: deterministic synthetic token streams with Cephalo's
 uneven per-rank batch geometry.
 
-A copy of the plan-batch half of ``repro.data.pipeline`` (numpy only):
-seeded by numpy, so the same seed gives the same token blocks as the JAX
-package.  The homogeneous batches and the stub frontend embeddings are
-not copied yet (no caller in the port).
+A copy of ``repro.data.pipeline`` (numpy only) but for its ``iterate``
+generator, which no caller in the port needs: seeded by numpy, so the
+same seed gives the same token blocks and stub frontend embeddings as the
+JAX package.
 
 The pipeline produces, per iteration, the padded SPMD batch layout
 ``(n_ranks, ell_pad, m_pad, seq)`` plus per-token weights implementing the
@@ -31,6 +31,7 @@ class DataConfig:
     vocab_size: int
     seq_len: int
     seed: int = 0
+    frontend_dim: int = 0      # >0 → also emit stub frontend embeddings
 
 
 class SyntheticStream:
@@ -59,6 +60,20 @@ class SyntheticStream:
             tok = np.where(noise, rand_tok, nxt).astype(np.int32)
             out[:, t] = tok
         return out
+
+
+def make_homogeneous_batch(stream: SyntheticStream, step: int, batch: int,
+                           ) -> Dict[str, np.ndarray]:
+    """Plain (B, S) batch for the single-host examples/tests."""
+    seq = stream.cfg.seq_len
+    toks = stream.sample(step, batch)
+    w = np.full((batch, seq), 1.0 / (batch * seq), np.float32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "weights": w}
+    if stream.cfg.frontend_dim:
+        rng = np.random.default_rng((stream.cfg.seed, step, 7))
+        out["frontend_embed"] = rng.standard_normal(
+            (batch, seq, stream.cfg.frontend_dim)).astype(np.float32)
+    return out
 
 
 def plan_grid_from_block(plan: Plan, big: np.ndarray

@@ -47,7 +47,8 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _window(name: str, fn: Callable[[], None], top: int) -> Dict:
+def _window(name: str, fn: Callable[[], None], top: int,
+            kind: Callable[[str], str] = _kind) -> Dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -66,7 +67,7 @@ def _window(name: str, fn: Callable[[], None], top: int) -> Dict:
         raise RuntimeError("the profiler recorded no device time")
     by_kind: Dict[str, float] = collections.Counter()
     for n, ms in by_name.items():
-        by_kind[_kind(n)] += ms
+        by_kind[kind(n)] += ms
     return {"window": name, "wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
             "device_ms_by_kind": dict(by_kind),

@@ -1,0 +1,180 @@
+"""Training launcher: plan a heterogeneous cluster, then train on the plan.
+
+The port of ``repro.launch.train`` for ``--runtime mpmd --substrate
+loopback``: builds the analytic cost model of ``--cluster`` for the model,
+runs the Cephalo planner (``auto_solve``), prints the plan, then trains
+with truly uneven per-rank batches and state shards through
+``build_train_step(..., substrate="loopback")``: every rank of the plan
+runs on the one device, ``cuda`` unless ``--device cpu`` is asked for.
+``--ga-mode`` selects any registered gradient-accumulation schedule.
+
+Not ported yet, and refused with the ROADMAP item that ports them:
+``--runtime spmd`` (queue 1, item 10); ``--substrate multiproc``,
+``--topology``, ``--overlap``, ``--elastic`` and ``--straggler`` (queue
+1, item 9).
+
+Example (CPU, small model)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-llama \
+        --reduced --steps 3 --batch 12 --seq 32 --cluster mini --device cpu
+
+gpt-1.3b at full width on the plan for the paper's Cluster A (one card)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \
+        --seq 512 --batch 128 --runtime mpmd --cluster cluster-a --steps 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, get_arch
+from repro_torch.core import device_specs as D
+from repro_torch.core.cost_model import analytic_cluster_model
+from repro_torch.core.engine import build_train_step, list_schedules
+from repro_torch.core.model_stats import build_model_stats
+from repro_torch.core.partition import Plan
+from repro_torch.core.planner import auto_solve
+from repro_torch.data.pipeline import DataConfig, SyntheticStream
+from repro_torch.models import model as M
+from repro_torch.optim.adam import AdamConfig
+
+CLUSTERS = {
+    "cluster-a": D.cluster_a,
+    "cluster-b": D.cluster_b,
+    "mini": lambda: D.Cluster([D.L4, D.A6000, D.P40, D.P100],
+                              link_gbps=50, name="mini"),
+}
+
+_ITEM_9 = ("not ported yet: ROADMAP queue 1, item 9 (process fleet and "
+           "elastic)")
+_ITEM_10 = "not ported yet: ROADMAP queue 1, item 10 (SPMD runtime)"
+
+
+def _train_loop(engine, args, plan, state=None, on_step=None) -> object:
+    stream = SyntheticStream(DataConfig(engine.cfg.vocab_size, args.seq,
+                                        seed=args.seed))
+    if state is None:
+        state = engine.init_state(
+            torch.Generator(args.device).manual_seed(args.seed))
+    # perf_counter: a monotonic clock, so a clock adjustment mid-run
+    # cannot corrupt the step wall times
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        if on_step is not None:
+            on_step(step)
+        big = stream.sample(step, plan.global_batch)
+        state, loss = engine.step(state, big)
+        if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
+            print(f"step {step:>5} loss {float(loss):.4f} "
+                  f"({time.perf_counter() - t0:.1f}s wall)")
+    return state
+
+
+def solve_plan(args) -> Tuple[ArchConfig, Plan]:
+    """The model and its plan: the analytic cost model of ``--cluster``
+    (cycled out to ``--nprocs`` ranks when given), solved by
+    ``auto_solve`` for ``--batch``.  Prints the plan; an infeasible plan
+    exits."""
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cluster = CLUSTERS[args.cluster]()
+    if args.nprocs:
+        devices = [cluster.devices[i % len(cluster.devices)]
+                   for i in range(args.nprocs)]
+        cluster = dataclasses.replace(
+            cluster, devices=devices,
+            name=f"{cluster.name}x{args.nprocs}")
+    cm = analytic_cluster_model(cluster, build_model_stats(cfg, args.seq))
+    plan = auto_solve(cm, args.batch)
+    print(plan.summary())
+    if not plan.feasible:
+        raise SystemExit(f"infeasible: {plan.infeasible_reason}")
+    return cfg, plan
+
+
+def build_engine(args, cfg: ArchConfig, plan: Plan):
+    """The loopback MPMD engine for ``plan`` on ``--device``."""
+    return build_train_step(cfg, plan, schedule=args.ga_mode,
+                            substrate="loopback",
+                            adam=AdamConfig(lr=args.lr), seq_len=args.seq,
+                            device=args.device)
+
+
+def run_mpmd(args) -> None:
+    cfg, plan = solve_plan(args)
+    engine = build_engine(args, cfg, plan)
+    with engine:
+        state = engine.init_state(
+            torch.Generator(args.device).manual_seed(args.seed))
+        print(engine.memory_report(state))
+        sim = engine.simulated_iteration_seconds()
+        print(f"predicted iteration: {sim['iteration_s']*1e3:.1f} ms "
+              f"({sim['throughput_samples_s']:.2f} samples/s)")
+        state = _train_loop(engine, args, plan, state=state)
+        if args.checkpoint:
+            from repro_torch.checkpoint import checkpointing as C
+            C.save(args.checkpoint, args.steps, state, {},
+                   meta={"plan": plan.to_json()})
+            print(f"saved checkpoint to {args.checkpoint}")
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--runtime", choices=("spmd", "mpmd"), default="mpmd")
+    ap.add_argument("--cluster", default="mini", choices=list(CLUSTERS))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ell", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ga-mode", default="layered",
+                    choices=list_schedules())
+    ap.add_argument("--substrate", default="loopback",
+                    choices=("loopback", "multiproc"),
+                    help="mpmd collective substrate: in-process loopback "
+                         "(multiproc is not ported yet)")
+    ap.add_argument("--nprocs", type=int, default=0,
+                    help="size the rank fleet explicitly (cycles the "
+                         "--cluster device specs); 0 = cluster size")
+    ap.add_argument("--topology", default=None, choices=("hub", "ring"),
+                    help="multiproc collective topology (not ported yet)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap ring rounds (not ported yet)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="the replanning runtime (not ported yet)")
+    ap.add_argument("--straggler", default="",
+                    help="inject a slowdown: RANK:FACTOR@STEP (not ported "
+                         "yet)")
+    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parser().parse_args(argv)
+    if args.runtime == "spmd":
+        raise SystemExit(f"--runtime spmd is {_ITEM_10}")
+    for flag, on in (("--substrate multiproc", args.substrate ==
+                      "multiproc"),
+                     ("--topology", args.topology is not None),
+                     ("--overlap", args.overlap),
+                     ("--elastic", args.elastic),
+                     ("--straggler", bool(args.straggler))):
+        if on:
+            raise SystemExit(f"{flag} is {_ITEM_9}")
+    M.resolve_device(args.device)
+    run_mpmd(args)
+
+
+if __name__ == "__main__":
+    main()

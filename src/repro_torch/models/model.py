@@ -120,9 +120,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     one layer exist at once.  ``device="meta"`` gives shapes only.
     """
     device = resolve_device(device)
-    if cfg.frontend_dim:
-        raise NotImplementedError("frontend stub (frontend_proj): the ViT "
-                                  "slice")
     dtype = torch.float32 if all_fp32 else compute_dtype(cfg)
 
     def store(path, t):
@@ -141,6 +138,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                           device=device)
         params["pos_embed"] = store(("pos_embed",), 0.02 * torch.nn.init.
                                     normal_(pos, generator=generator))
+    if cfg.frontend_dim:
+        params["frontend_proj"] = store(("frontend_proj",), dense_init(
+            generator, (cfg.frontend_dim, cfg.d_model), device=device))
     stages = []
     for spec in build_stages(cfg):
         stacked = None
@@ -182,13 +182,19 @@ def param_count(params: Any) -> int:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ArchConfig, params: Dict[str, Any],
-                 tokens: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor, positions: torch.Tensor,
+                 frontend_embed: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype,
                              device=x.device)
+    if frontend_embed is not None and "frontend_proj" in params:
+        # Stubbed modality frontend: precomputed patch/frame embeddings are
+        # projected and added (interleave handled by the data pipeline).
+        x = x + (frontend_embed.to(dtype)
+                 @ params["frontend_proj"].to(dtype))
     if cfg.learned_pos:
         x = x + params["pos_embed"].to(dtype)[positions]
     return x
@@ -250,13 +256,15 @@ def _stage_apply_train(cfg: ArchConfig, spec: StageSpec, stage: Any,
 
 
 def forward_hidden(cfg: ArchConfig, params: Dict[str, Any],
-                   tokens: torch.Tensor, remat: str = "full"
+                   tokens: torch.Tensor,
+                   frontend_embed: torch.Tensor | None = None,
+                   remat: str = "full"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (hidden, aux_loss)."""
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
-    x = embed_tokens(cfg, params, tokens, positions)
+    x = embed_tokens(cfg, params, tokens, positions, frontend_embed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, sp in zip(build_stages(cfg), params["stages"]):
         x, aux = _stage_apply_train(cfg, spec, sp, x, positions, aux, remat)
@@ -299,8 +307,11 @@ def loss_fn(cfg: ArchConfig, params: Dict[str, Any], batch: Dict[str, Any],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted-sum CE + router aux.  ``batch`` holds ``tokens`` and
     ``labels`` (B, S) int64 and ``weights`` (B, S) fp32, the Eq. 1
-    normalization (uniform 1/(B·S) for homogeneous training)."""
-    h, aux = forward_hidden(cfg, params, batch["tokens"], remat)
+    normalization (uniform 1/(B·S) for homogeneous training), and for a
+    model with a frontend stub optionally ``frontend_embed`` (B, S,
+    frontend_dim)."""
+    h, aux = forward_hidden(cfg, params, batch["tokens"],
+                            batch.get("frontend_embed"), remat)
     ce = chunked_ce(cfg, params, h, batch["labels"], batch["weights"],
                     ce_chunk)
     total_w = torch.clamp(torch.sum(batch["weights"]), min=1e-9)

@@ -132,8 +132,9 @@ def test_learned_positions_and_fp32_storage():
     assert sum(t.numel() for t in leaves) == 1_414_158_336
     served = M.init_params(full.reduced(), torch.Generator(), "cpu")
     assert served["embed"].dtype == torch.float32   # reduced: fp32 config
-    with pytest.raises(NotImplementedError, match="frontend"):
-        M.init_params(get_arch("vit-g").reduced(), torch.Generator(), "cpu")
+    vit = get_arch("vit-g").reduced()
+    stub = M.init_params(vit, torch.Generator(), "cpu")["frontend_proj"]
+    assert tuple(stub.shape) == (vit.frontend_dim, vit.d_model)
 
 
 def test_adam_matches_reference_over_three_steps():
