@@ -39,7 +39,8 @@ Phases, each printing one JSON line:
 6. serve_mamba2 — ``launch.serve.serve`` on mamba2-370m at full width
              (bf16, random weights from a seed): batch 8, prompt 2048, 32
              generated tokens; the prefill must launch the bf16 SSD kernel
-             once per layer and the flash kernel never;
+             once per layer and the flash kernel never (and no serve a
+             backward kernel);
 7. consistency — fp32, TF32 off, full width, for llama-7b and mamba2-370m:
              the last logits of a prefill of S+1 tokens against a prefill
              of S tokens and one decode step (the kernel path against the
@@ -60,11 +61,26 @@ Phases, each printing one JSON line:
              the forward with its log-sum-exp, of each backward kernel, of
              the plain backward and of SDPA's at the gpt-1.3b training
              shape, beside the least time the card could take;
-9. train_grads — fp32, TF32 off: the loss and every param grad of reduced
-             gpt-1.3b and bert-large through the kernels on the card against
-             the same on the CPU (plain versions), within 1e-4 of each
-             leaf's max|grad|; and the SSD scan refusing a gradient on CUDA;
-10. train  — ``build_train_step(..., substrate="loopback",
+9. ssd_bwd — the SSD scan's backward kernel (through the autograd
+             function of ``ops.ssd_scan``) against the plain version's
+             autograd on the card, dx, ddt, da, db, dc and dh0 for seeded
+             cotangents on y and the final state: the forward's cases and
+             its ragged slow-decay one, each from zero and from a given
+             state, in fp32 (|err| <= 1e-4 max|plain|) and bf16 (|err| <=
+             1e-3 max|plain| + 1e-2 |plain|), and mamba2-370m's heads as
+             the model's views (L 2048, and a ragged L 1025 from a given
+             state); each case must launch the backward once; two runs at
+             the training shape must agree bit for bit; its ptxas
+             registers and spills; its time at the training shape of the
+             largest rank call of the mamba2 plan below (B 10, L 2048,
+             bf16 views) beside the least time the card could take and the
+             plain backward's time (at B 2: it keeps a state per position);
+10. train_grads — fp32, TF32 off: the loss and every param grad of
+             reduced gpt-1.3b, bert-large (through the flash kernels) and
+             mamba2-370m (P 32, N 16, through the SSD kernels) on the card
+             against the same on the CPU (plain versions), within 1e-4 of
+             each leaf's max|grad|;
+11. train  — ``build_train_step(..., substrate="loopback",
              schedule="layered")`` on gpt-1.3b at full width and depth
              (seq 512, two ranks of one plan on the one card, fp32 state,
              bf16 compute), state from a seeded generator on the card,
@@ -73,7 +89,7 @@ Phases, each printing one JSON line:
              by each step, and the flash launches the plan, the schedule
              and the per-layer checkpointing predict, every backward launch
              on the bf16 tensor-core kernels;
-11. profile — the profiler (``core/profiler.py``) on the card: one
+12. profile — the profiler (``core/profiler.py``) on the card: one
              gpt-1.3b layer at seq 512 in bf16, forward and backward, timed
              by CUDA events at m = 1, 2, 3, 4, 6, 8, 12; the piecewise fit
              on m <= 6 and its error at m = 8 and 12 (the paper's App. A.3
@@ -82,7 +98,7 @@ Phases, each printing one JSON line:
              128: fails on an infeasible plan, a sample that is not finite
              and positive, or a flash launch off the bf16 tensor-core
              kernels;
-12. plan_train — the training launcher's own functions
+13. plan_train — the training launcher's own functions
              (``launch.train.solve_plan``, ``_train_loop``) on gpt-1.3b at
              full width and depth: the plan the port's planner solves for
              Cluster A at batch 128 (eight ranks of uneven m and ell on the
@@ -93,12 +109,21 @@ Phases, each printing one JSON line:
              step; then reduced gpt-1.3b on the card: a checkpoint of the
              exported state saved after 2 steps, loaded, imported into a
              fresh engine, and its third step's loss equal to the loss of
-             3 steps straight.
+             3 steps straight;
+14. plan_train_mamba2 — the launcher's functions on mamba2-370m at full
+             width and depth (48 layers, d 1024, 419,825,152 parameters):
+             the plan for Cluster A at seq 2048, batch 32 (m 7, 7, 10, 2,
+             2, 2, 1, 1: eight rank calls a step), 1 warm-up step and 2
+             timed ones; finite losses, every rank's shard changed by each
+             step, and per step 2 x 48 x 8 SSD forward launches (all
+             ``bf16-mma``) and 48 x 8 backward launches (``bf16-fma``), no
+             flash launch.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches on its
-main-path run (serving for the forwards, phase ``train`` for the
-backward; a planned step's launches beside them), its error and its
-times, and last
+main-path run (serving for the forwards, phase ``train`` for the flash
+backward, the timed steps of ``plan_train_mamba2`` for the SSD backward;
+a planned step's launches beside them), its error and its times, and
+last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -140,7 +165,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_backward_reference, ssd_scan_reference)
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -229,6 +255,20 @@ PLAN_STEPS = 2
 # the checkpoint resume: reduced gpt-1.3b on the same cluster's plan
 RESUME_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--seq", "64", "--batch",
                "16", "--cluster", "cluster-a"]
+# the SSD backward's cases beyond the forward's: mamba2-370m's heads as the
+# model's views at B 2 (L 2048, and a ragged L from a given state); its
+# training shape, the largest rank call of the Cluster A plan below (rank
+# 2: m 10), where the plain backward, which keeps a state per position, is
+# timed at B 2
+SSD_BWD_VIEWS = {"views-2048": ((2, 32, 2048, 64, 128), False),
+                 "views-ragged-1025-h0": ((2, 32, 1025, 64, 128), True)}
+SSD_TRAIN_SHAPE = (10, 32, 2048, 64, 128)
+SSD_PLAIN_BATCH = 2
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dh0")
+# mamba2-370m training: the launcher's plan for Cluster A at seq 2048 (the
+# Mamba2 paper's training context), batch 32: m 7, 7, 10, 2, 2, 2, 1, 1
+MAMBA_PLAN_ARGS = ["--arch", MAMBA, "--seq", "2048", "--batch", "32",
+                   "--runtime", "mpmd", "--cluster", "cluster-a"]
 
 
 def emit(obj) -> None:
@@ -268,6 +308,7 @@ def _ptxas_usage(logs: dict) -> dict:
             if hit:
                 m = re.search(r"(flash_fwd_kernel_\w+?|"
                               r"flash_bwd_\w+?_kernel(?:_mma)?|"
+                              r"ssd_scan_bwd_kernel|"
                               r"ssd_scan_kernel\w*?)I(\w+?)EEv", hit[1])
                 func = f"{m[1]}<{m[2]}>" if m else hit[1]
                 usage[func] = ""
@@ -321,6 +362,15 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _least_ms(nbytes, flops, dtype):
+    """(least ms, what bounds it, bytes, FLOPs): the larger of ``nbytes``
+    at the HBM rate and ``flops`` at the peak for ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
 def _bound(case, dtype):
     """Least time (ms) for the function at ``case``: each input read once
     and the output written once at the HBM rate, against the two matmuls'
@@ -336,10 +386,7 @@ def _bound(case, dtype):
     if window > 0:
         keep &= qp - kp < window
     flops = 4.0 * b * h * d * int(keep.sum())
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return _least_ms(nbytes, flops, dtype)
 
 
 def _sass_counts(name: str) -> dict:
@@ -359,6 +406,7 @@ def _sass_counts(name: str) -> dict:
         if hit:
             m = re.search(r"(flash_fwd_kernel_\w+?|"
                           r"flash_bwd_\w+?_kernel(?:_mma)?|"
+                          r"ssd_scan_bwd_kernel|"
                           r"ssd_scan_kernel\w*?)I", hit[1])
             func = m[1] if m else hit[1][:40]
             counts.setdefault(func, {"HMMA": 0, "HGMMA": 0})
@@ -498,10 +546,7 @@ def _ssd_bound(shape, dtype):
         pairs = q * (q + 1) // 2
         flops += 2 * pairs * (n + p) + 4 * q * p * n
     flops *= b * h
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return _least_ms(nbytes, flops, dtype)
 
 
 def phase_ssd_kernel() -> dict:
@@ -582,7 +627,10 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     for ops in KERNEL_OPS.values():
         ops.LAUNCHES = 0
         ops.VARIANT_LAUNCHES.update(dict.fromkeys(ops.VARIANT_LAUNCHES, 0))
+    bwd_before = (ssd_ops.BWD_LAUNCHES, dict(flash_ops.BWD_LAUNCHES))
     res = serve(cfg, model, prompts, gen, "cuda")
+    if (ssd_ops.BWD_LAUNCHES, dict(flash_ops.BWD_LAUNCHES)) != bwd_before:
+        raise AssertionError(f"{arch}: a serve launched a backward kernel")
     launches = {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
     variants = {name: {k: n for k, n in ops.VARIANT_LAUNCHES.items() if n}
                 for name, ops in KERNEL_OPS.items()}
@@ -761,10 +809,7 @@ def _bwd_bound(case, dtype, which: str):
         keep &= qp - kp < window
     pairs = b * h * int(keep.sum())
     flops = {"dq": 6, "dkdv": 8, "both": 10}[which] * d * pairs
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return _least_ms(nbytes, flops, dtype)
 
 
 def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
@@ -861,6 +906,156 @@ def phase_flash_bwd() -> dict:
             for w in ("dq", "dkdv")}
 
 
+def _ssd_bwd_compare(name, inputs, h0=None, seed=5) -> dict:
+    """The SSD backward kernel, through autograd of ``ssd_ops.ssd_scan``,
+    against the plain version's autograd on the same inputs, for a seeded
+    cotangent on y and on the final state: dx, ddt, da, db, dc (and dh0
+    from a given h0).  fp32 within 1e-4 of each grad's max|plain| (fp32
+    sums in another order); bf16 within 1e-3 max|plain| + 1e-2 |plain|
+    elementwise (both compute in fp32 from the same bf16 inputs; dx, db,
+    dc are rounded once to bf16).  One forward and one backward launch of
+    the dtype's variant.  Returns each grad's largest error over its
+    max|plain|, and ``abs``, the largest absolute error."""
+    x, b = inputs[0], inputs[3]
+    bsz, h, l, p = x.shape
+    n = b.shape[2]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(bsz, l, h, p, generator=g, device="cuda").to(
+        x.dtype).transpose(1, 2)
+    dh = torch.randn(bsz, h, p, n, generator=g, device="cuda")
+    ins = [t.detach().requires_grad_() for t in inputs]
+    if h0 is not None:
+        ins.append(h0.detach().requires_grad_())
+    before = (ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES,
+              dict(ssd_ops.BWD_VARIANT_LAUNCHES))
+    y, h_final = ssd_ops.ssd_scan(*ins)
+    got = torch.autograd.grad((y, h_final), ins, (dy, dh))
+    torch.cuda.synchronize()
+    variant = ssd_ops.BWD_VARIANTS[x.dtype]
+    want_var = {k: c + (k == variant) for k, c in before[2].items()}
+    if (ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES) != \
+            (before[0] + 1, before[1] + 1) or \
+            ssd_ops.BWD_VARIANT_LAUNCHES != want_var:
+        raise AssertionError(f"ssd backward {name}: launches forward "
+                             f"{ssd_ops.LAUNCHES}, backward "
+                             f"{ssd_ops.BWD_LAUNCHES} "
+                             f"{ssd_ops.BWD_VARIANT_LAUNCHES} after {before}")
+    want = ssd_scan_backward_reference(*inputs, h0, dy, dh)
+    atol, rtol = (1e-3, 1e-2) if x.dtype == torch.bfloat16 else (1e-4, 0.0)
+    errs = {"abs": 0.0}
+    for what, gg, ww in zip(SSD_GRADS, got, want):
+        if ww is None:
+            continue
+        gg, ww = gg.float(), ww.float()
+        scale = ww.abs().max().item()
+        diff = (gg - ww).abs()
+        over = (diff / (atol * scale + rtol * ww.abs())).max().item()
+        if not (np.isfinite(over) and over <= 1.0 and scale > 0):
+            raise AssertionError(f"ssd backward {name} {what}: max err "
+                                 f"{diff.max().item()}, {over} x the "
+                                 f"tolerance (max|plain| {scale})")
+        errs[what] = diff.max().item() / scale
+        errs["abs"] = max(errs["abs"], diff.max().item())
+    return errs
+
+
+def _ssd_bwd_bound(shape, dtype):
+    """Least time (ms) of the SSD backward at ``shape``: x, dy, dt, a, B, C
+    read once and dx, ddt, da, dB, dC written once at the HBM rate, against
+    the FLOPs of the chunked form at the kernel's tile (C B^T, dy u^T,
+    M^T dy, dS B and dS^T C over causal pairs; the chunk states, B g^T,
+    dy h_prev, x g and the adjoint update over Q x P x N) at the peak for
+    ``dtype``."""
+    b, h, l, p, n = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (esize * (3 * b * h * l * p + 4 * b * l * n)
+              + 4 * (2 * b * h * l + 2 * h))
+    flops = 0
+    for l0 in range(0, l, SSD_Q):
+        q = min(SSD_Q, l - l0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * pairs * (3 * n + 2 * p) + 10 * q * p * n
+    flops *= b * h
+    return _least_ms(nbytes, flops, dtype)
+
+
+def phase_ssd_bwd() -> dict:
+    """The SSD backward kernel against the plain version's autograd on the
+    card; its time at the training shape beside its bound and the plain
+    backward's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    h0_gen = torch.Generator("cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        cases = [(f"case{i}", c, False) for i, c in enumerate(SSD_CASES)]
+        cases.append(("ragged", SSD_RAGGED, True))
+        for name, case, slow in cases:
+            b, h, _, p, n = case
+            for with_h0 in (False, True):
+                h0 = torch.randn(b, h, p, n, device="cuda",
+                                 generator=h0_gen) if with_h0 else None
+                key = f"{name}{'-h0' if with_h0 else ''}-{tag}"
+                errs[key] = _ssd_bwd_compare(
+                    key, _ssd_inputs(case, dtype, seed=2, slow=slow), h0)
+    for name, (shape, with_h0) in SSD_BWD_VIEWS.items():
+        b, h, _, p, n = shape
+        h0 = torch.randn(b, h, p, n, device="cuda",
+                         generator=h0_gen) if with_h0 else None
+        errs[f"{name}-bfloat16"] = _ssd_bwd_compare(
+            name, _ssd_model_views(shape, seed=7), h0)
+    main_err = errs["views-2048-bfloat16"]["abs"]
+
+    dtype = torch.bfloat16
+    b, h, l, p, n = SSD_TRAIN_SHAPE
+    inputs = _ssd_model_views(SSD_TRAIN_SHAPE, seed=6)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dy = torch.randn(b, l, h, p, generator=g, device="cuda").to(
+        dtype).transpose(1, 2)
+
+    def bwd():
+        return ssd_ops._backward(*inputs, None, dy, None)
+    first, again = bwd(), bwd()
+    if not all(torch.equal(u, v) for u, v in zip(first[:5], again[:5])):
+        raise AssertionError("ssd backward: two runs on the same inputs "
+                             "differ (it must sum in a fixed order)")
+    del first, again
+    call_ms = _time_ms(bwd, 10)
+    kernel_ms = _kernel_ms_by_name(bwd, 10, ("ssd_scan_bwd_kernel",))[
+        "ssd_scan_bwd_kernel"]
+    plain_in = _ssd_model_views((SSD_PLAIN_BATCH,) + SSD_TRAIN_SHAPE[1:],
+                                seed=6)
+    plain_dy = dy[:SSD_PLAIN_BATCH]
+    plain_ms = _time_ms(lambda: ssd_scan_backward_reference(
+        *plain_in, None, plain_dy), 2, warmup=1)
+    kernel_ms_2 = _kernel_ms_by_name(bwd, 10, ("ssd_scan_bwd_kernel",))[
+        "ssd_scan_bwd_kernel"]
+    bound_ms, bound_by, nbytes, flops = _ssd_bwd_bound(SSD_TRAIN_SHAPE,
+                                                       dtype)
+    plain_bound = _ssd_bwd_bound((SSD_PLAIN_BATCH,) + SSD_TRAIN_SHAPE[1:],
+                                 dtype)[0]
+    variant = ssd_ops.BWD_VARIANTS[dtype]
+    emit({"phase": "ssd_bwd", "max_rel_err": errs,
+          "views_max_abs_err": main_err, "shape": SSD_TRAIN_SHAPE,
+          "dtype": "bfloat16", "variant": variant,
+          "ptxas": {k: v for k, v in PTXAS.items()
+                    if k.startswith("ssd_scan_bwd")},
+          "kernel_ms": kernel_ms, "kernel_ms_repeat": kernel_ms_2,
+          "call_ms": call_ms, "plain_ms": plain_ms,
+          "plain_batch": SSD_PLAIN_BATCH, "plain_bound_ms": plain_bound,
+          "library_ms": None,
+          "library_note": "no PyTorch call computes the SSD scan's "
+                          "gradient",
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+          "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9})
+    del inputs, dy, plain_in, plain_dy
+    torch.cuda.empty_cache()
+    return {"variant": variant, "max_abs_err": main_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "plain_batch": SSD_PLAIN_BATCH,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def _loss_and_grads(cfg, params, batch):
     leaves, _ = fsdp.tree_flatten(params)
     for t in leaves:
@@ -871,11 +1066,13 @@ def _loss_and_grads(cfg, params, batch):
 
 def phase_train_grads() -> dict:
     """fp32, TF32 off: reduced models' loss and grads through the kernels
-    on the card against the plain versions on the CPU, same params."""
+    on the card against the plain versions on the CPU, same params; the
+    dense models through the flash kernels, mamba2 (P 32, N 16) through
+    the SSD kernels."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = {}
-    for arch in ("gpt-1.3b", "bert-large"):
+    for arch in ("gpt-1.3b", "bert-large", MAMBA):
         cfg = get_arch(arch).reduced()
         cpu_params = M.init_params(cfg, torch.Generator().manual_seed(3),
                                    "cpu", all_fp32=True)
@@ -888,16 +1085,22 @@ def phase_train_grads() -> dict:
             batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
                      "weights": torch.full((2, 128), 1 / 256,
                                            device=device)}
-            before = (flash_ops.LAUNCHES, dict(flash_ops.BWD_LAUNCHES))
+            before = (flash_ops.LAUNCHES, dict(flash_ops.BWD_LAUNCHES),
+                      ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES)
             out[device] = _loss_and_grads(
                 cfg, params_from_numpy(tree, device), batch)
             torch.cuda.synchronize()
         fwd = flash_ops.LAUNCHES - before[0]
         bwd = {n: c - before[1][n] for n, c in flash_ops.BWD_LAUNCHES.items()}
-        if fwd != 2 * cfg.n_layers or set(bwd.values()) != {cfg.n_layers}:
+        ssd = (ssd_ops.LAUNCHES - before[2], ssd_ops.BWD_LAUNCHES - before[3])
+        # each checkpointed layer: its kernel's forward twice, backward once
+        n_attn = 0 if cfg.is_ssm else cfg.n_layers
+        n_ssm = cfg.n_layers if cfg.is_ssm else 0
+        if fwd != 2 * n_attn or set(bwd.values()) != {n_attn} or \
+                ssd != (2 * n_ssm, n_ssm):
             raise AssertionError(f"{arch}: flash launches {fwd} forward, "
-                                 f"{bwd} backward for {cfg.n_layers} "
-                                 f"checkpointed layers")
+                                 f"{bwd} backward; SSD launches {ssd} for "
+                                 f"{cfg.n_layers} checkpointed layers")
         (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
         if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
             raise AssertionError(f"{arch}: loss {loss_g} on the card, "
@@ -912,16 +1115,6 @@ def phase_train_grads() -> dict:
             worst = max(worst, err / scale)
         res[arch] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
                      "grad_max_rel_err": worst, "leaves": len(grads_c)}
-    x = torch.randn(1, 2, 64, 32, device="cuda", requires_grad=True)
-    dt = torch.rand(1, 2, 64, device="cuda")
-    bc = torch.randn(1, 64, 16, device="cuda")
-    try:
-        ssd_ops.ssd_scan(x, dt, -torch.ones(2, device="cuda"), bc, bc)
-    except RuntimeError as e:
-        res["ssd_scan_refuses_grad"] = str(e)[:60]
-    else:
-        raise AssertionError("ssd_scan on CUDA ran with an input that "
-                             "requires grad")
     emit({"phase": "train_grads", "dtype": "float32", **res})
     return res
 
@@ -933,6 +1126,16 @@ def _zero_flash_counts() -> None:
     flash_ops.BWD_LAUNCHES.update(dict.fromkeys(flash_ops.BWD_LAUNCHES, 0))
     flash_ops.BWD_VARIANT_LAUNCHES.update(
         dict.fromkeys(flash_ops.BWD_VARIANT_LAUNCHES, 0))
+
+
+def _zero_counts() -> None:
+    """Every kernel's launch counts, flash and SSD, forward and backward."""
+    _zero_flash_counts()
+    ssd_ops.LAUNCHES = ssd_ops.BWD_LAUNCHES = 0
+    ssd_ops.VARIANT_LAUNCHES.update(dict.fromkeys(ssd_ops.VARIANT_LAUNCHES,
+                                                  0))
+    ssd_ops.BWD_VARIANT_LAUNCHES.update(
+        dict.fromkeys(ssd_ops.BWD_VARIANT_LAUNCHES, 0))
 
 
 def _rank_calls(schedule, plan: Plan) -> int:
@@ -1190,12 +1393,15 @@ def _resume_check() -> dict:
             "resumed_loss": loss, "straight_loss": want}
 
 
-def phase_plan_train() -> dict:
-    """gpt-1.3b at full width and depth on the plan ``launch.train``
-    solves for Cluster A at batch 128, through its ``_train_loop``: 1
-    warm-up step and 2 timed ones; then a checkpoint's exact resume."""
+def _planned_run(phase: str, argv, check_launches) -> dict:
+    """The launcher's plan for ``argv`` at full width and depth through
+    its ``_train_loop``: 1 warm-up step and PLAN_STEPS timed ones, every
+    launch count zeroed after the warm-up and checked by
+    ``check_launches(rank_layer_calls)`` after the last step; finite
+    losses, every rank's shard changed by each step.  Returns the phase's
+    record, ``launches_per_step`` included."""
     args = train_launch.parser().parse_args(
-        PLAN_ARGS + ["--steps", str(1 + PLAN_STEPS)])
+        argv + ["--steps", str(1 + PLAN_STEPS)])
     engine, plan, summary = _launcher_engine(args)
     cfg = engine.cfg
     timed = _TimedEngine(engine)
@@ -1207,7 +1413,7 @@ def phase_plan_train() -> dict:
 
     def on_step(step):
         if step == 1:               # after the warm-up step
-            _zero_flash_counts()
+            _zero_counts()
             torch.cuda.reset_peak_memory_stats()
 
     printed = io.StringIO()
@@ -1216,21 +1422,20 @@ def phase_plan_train() -> dict:
                                          on_step=on_step)
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(timed.losses)):
-        raise AssertionError(f"plan_train: non-finite loss {timed.losses}")
-    launches = _check_train_launches(
-        "plan_train", PLAN_STEPS * _rank_calls(engine.schedule, plan) *
-        cfg.n_layers)
+        raise AssertionError(f"{phase}: non-finite loss {timed.losses}")
+    rank_calls = _rank_calls(engine.schedule, plan)
+    launches = check_launches(PLAN_STEPS * rank_calls * cfg.n_layers)
     step_ms = timed.step_ms[1:]
     mean_ms = float(np.mean(step_ms))
     sim = engine.simulated_iteration_seconds()
-    res = {"phase": "plan_train", "arch": cfg.name,
+    res = {"phase": phase, "arch": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": sum(g.layout.size * g.count
                          for g in engine.trainer.groups),
            "seq": args.seq, "global_batch": plan.global_batch,
            "cluster": plan.cluster, "schedule": args.ga_mode,
            "plan": [(r.device, r.m, r.ell, r.state_ratio)
-                    for r in plan.ranks],
+                    for r in plan.ranks], "rank_calls": rank_calls,
            "plan_summary": summary, "printed": printed.getvalue()
            .splitlines(), "init_s": init_s,
            "warmup_loss": timed.losses[0], "losses": timed.losses[1:],
@@ -1245,9 +1450,52 @@ def phase_plan_train() -> dict:
            "memory": engine.memory_report(state).splitlines()}
     del engine, timed, state
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_plan_train() -> dict:
+    """gpt-1.3b at full width and depth on the plan ``launch.train``
+    solves for Cluster A at batch 128, through its ``_train_loop``: 1
+    warm-up step and 2 timed ones; then a checkpoint's exact resume."""
+    res = _planned_run("plan_train", PLAN_ARGS,
+                       lambda n: _check_train_launches("plan_train", n))
     res["resume"] = _resume_check()
     emit(res)
-    return {k: v // PLAN_STEPS for k, v in launches.items()}
+    return res["launches_per_step"]
+
+
+def _check_ssm_train_launches(phase: str, n: int) -> dict:
+    """The SSD launches since the counts were zeroed: each of ``n`` layer
+    calls (rank calls times layers) runs the scan's forward twice
+    (checkpointed, bf16 on tensor cores) and its backward once (bf16 in,
+    fp32 FMAs); no flash kernel runs."""
+    launches = {"ssd_scan": ssd_ops.LAUNCHES,
+                "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES}
+    if launches != {"ssd_scan": 2 * n, "ssd_scan_bwd": n} or \
+            ssd_ops.VARIANT_LAUNCHES != {"fp32-fma": 0, "bf16-mma": 2 * n} \
+            or ssd_ops.BWD_VARIANT_LAUNCHES != {"fp32-fma": 0,
+                                                "bf16-fma": n}:
+        raise AssertionError(f"{phase}: SSD launches {launches} (forward "
+                             f"{ssd_ops.VARIANT_LAUNCHES}, backward "
+                             f"{ssd_ops.BWD_VARIANT_LAUNCHES}), expected "
+                             f"{2 * n} forward and {n} backward, all bf16")
+    flash = (flash_ops.LAUNCHES, sum(flash_ops.BWD_LAUNCHES.values()))
+    if flash != (0, 0):
+        raise AssertionError(f"{phase}: flash launches {flash} in a model "
+                             f"with no attention")
+    return launches
+
+
+def phase_plan_train_mamba2() -> dict:
+    """mamba2-370m at full width and depth on the plan ``launch.train``
+    solves for Cluster A at seq 2048, batch 32, through its
+    ``_train_loop``: 1 warm-up step and 2 timed ones; every SSD gradient
+    from the CUDA backward kernel."""
+    res = _planned_run(
+        "plan_train_mamba2", MAMBA_PLAN_ARGS,
+        lambda n: _check_ssm_train_launches("plan_train_mamba2", n))
+    emit(res)
+    return res["launches_per_step"]
 
 
 def main() -> int:
@@ -1268,10 +1516,12 @@ def main() -> int:
     phase_consistency("llama-7b", 2, 256)
     phase_consistency(MAMBA, 2, 1024)
     bwd = phase_flash_bwd()
+    ssd_bwd = phase_ssd_bwd()
     phase_train_grads()
     bwd_launches = phase_train()
     phase_profile()
     plan_launches = phase_plan_train()
+    mamba_launches = phase_plan_train_mamba2()
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1294,7 +1544,15 @@ def main() -> int:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:72",
-         "launches": ssd_launches["ssd_scan"], **ssd}]})
+         "launches": ssd_launches["ssd_scan"],
+         "launches_planned_step": mamba_launches["ssd_scan"], **ssd},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+         "replaces": None,
+         "differentiates": "src/repro/kernels/ssd_scan/ssd_scan.py:72",
+         "launches": mamba_launches["ssd_scan_bwd"] * PLAN_STEPS,
+         "launches_planned_step": mamba_launches["ssd_scan_bwd"],
+         **ssd_bwd}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
     return 0

@@ -11,9 +11,12 @@ read through the strides they are given, so the column slices and
 transposed views that ``models.layers.ssd.ssd_apply`` passes are not
 copied.
 
-On CUDA it refuses a gradient: with grad mode on, an input that requires
-grad raises, since the kernel has no backward yet (the Mamba2 training
-slice brings it).  The CPU path is plain PyTorch and differentiates.
+Where grad mode is on and an input requires grad, CUDA tensors go through
+:class:`SSDScan`, a ``torch.autograd.Function``: its forward launches the
+forward kernel, and its backward the backward kernel of
+``csrc/ssd_scan_bwd.cu`` (scalar fp32 FMAs for fp32 and bf16 inputs), or
+raises; it never takes the plain version.  CPU tensors take the plain
+version through plain autograd.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
@@ -31,12 +35,19 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
 LAUNCHES = 0
 #: The same launches by kernel variant.
 VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
+#: Launches of the backward kernel, apart from the forward ones above.
+BWD_LAUNCHES = 0
+#: The backward's launches by input dtype (both on scalar fp32 FMAs).
+BWD_VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-fma": 0}
 
 HEAD_DIMS = (32, 64)               # P instantiated in the kernel
 STATE_DIMS = (16, 32, 64, 128)     # N instantiated in the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}
+BWD_VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-fma"}
+CHUNK = 64                         # positions per chunk of both kernels
 _FN = None
+_BWD_FN = None
 
 
 def _kernel_fn():
@@ -49,6 +60,17 @@ def _kernel_fn():
                        + [ctypes.c_int, ctypes.c_void_p])
         _FN = fn
     return _FN
+
+
+def _bwd_kernel_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = build.load("ssd_scan_bwd").ssd_scan_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 19 + [ctypes.c_void_p])
+        _BWD_FN = fn
+    return _BWD_FN
 
 
 def _copy_width(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> int:
@@ -136,18 +158,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     On CUDA, y is stored as (B, L, H, P) and returned as its
     (B, H, L, P) view, so the model's transpose back is free.
     """
-    global LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_reference(x, dt, a, b, c, h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
-        raise RuntimeError(
-            "ssd_scan on CUDA has no backward yet: its gradient comes with "
-            "the SSD backward kernel of the Mamba2 training slice (ROADMAP "
-            "queue 1, item 7); call it under torch.no_grad() or on inputs "
-            "that do not require grad")
+        return SSDScan.apply(x, dt, a, b, c, h0)
+    return _forward(x, dt, a, b, c, h0)
+
+
+def _forward(x, dt, a, b, c, h0):
+    """Launch the forward kernel; returns (y, h_final)."""
+    global LAUNCHES
     _check(x, dt, a, b, c, h0)
     bsz, h, l, p = x.shape
     n = b.shape[2]
@@ -170,3 +193,82 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     LAUNCHES += 1
     VARIANT_LAUNCHES[VARIANTS[x.dtype]] += 1
     return y, h_final
+
+
+def _backward(x, dt, a, b, c, h0, dy, dh_final):
+    """Launch the backward kernel: the grads of ``ssd_scan``'s inputs
+    (dx, ddt, da, db, dc, dh0; dh0 is None without h0) for the cotangents
+    ``dy`` of y and ``dh_final`` of the final state (None for zero).
+
+    The kernel writes da per (batch, head) and db, dc per head, fp32;
+    they are summed here over batch and heads by ``torch.sum``, in a fixed
+    order, so a rerun gives the same bits.  dx and ddt are stored as
+    (B, L, H, P) and (B, L, H) and returned as their (B, H, L, ·) views,
+    the layout of the model's x and dt.  Scratch: the state at the start
+    of each chunk, (B, H, ceil(L / 64), P, N) fp32."""
+    global BWD_LAUNCHES
+    _check(x, dt, a, b, c, h0)
+    bsz, h, l, p = x.shape
+    n = b.shape[2]
+    if dy is None:
+        dy = torch.zeros_like(x)
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype}, not "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if dh_final is not None:
+        if tuple(dh_final.shape) != (bsz, h, p, n):
+            raise ValueError(f"dh_final must be {(bsz, h, p, n)}, not "
+                             f"{tuple(dh_final.shape)}")
+        dh_final = dh_final.float().contiguous()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_chunks = -(-l // CHUNK)
+    states = torch.empty((bsz, h, n_chunks, p, n), **f32)
+    dx = torch.empty((bsz, l, h, p), dtype=x.dtype,
+                     device=dev).transpose(1, 2)
+    ddt = torch.empty((bsz, l, h), **f32).transpose(1, 2)
+    da = torch.empty((bsz, h), **f32)
+    db = torch.empty((bsz, h, l, n), **f32)
+    dc = torch.empty((bsz, h, l, n), **f32)
+    dh0 = None if h0 is None else torch.empty((bsz, h, p, n), **f32)
+    fn = _bwd_kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), None if h0 is None else h0.data_ptr(),
+                dy.data_ptr(),
+                None if dh_final is None else dh_final.data_ptr(),
+                states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                None if dh0 is None else dh0.data_ptr(),
+                _DTYPES[x.dtype], bsz, h, l, p, n,
+                *x.stride()[:3], *dt.stride(), b.stride(0), b.stride(1),
+                c.stride(0), c.stride(1), *dy.stride()[:3],
+                *dx.stride()[:3], *ddt.stride(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    BWD_LAUNCHES += 1
+    BWD_VARIANT_LAUNCHES[BWD_VARIANTS[x.dtype]] += 1
+    return (dx, ddt, da.sum(0), db.sum(1).to(b.dtype),
+            dc.sum(1).to(c.dtype), dh0)
+
+
+class SSDScan(torch.autograd.Function):
+    """The CUDA kernels as an autograd function: the forward kernel, and
+    its hand-written backward.  It saves the inputs, not the outputs (a
+    checkpointed layer recomputes the forward anyway), and takes an unused
+    final state's cotangent as zero without building it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        return _forward(x, dt, a, b, c, h0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_final):
+        return _backward(*ctx.saved_tensors, dy, dh_final)

@@ -42,6 +42,8 @@ def _kind(name: str) -> str:
         return "flash_attention_bwd"
     if "ssd_scan_kernel" in low:
         return "ssd_scan"
+    if "ssd_scan_bwd_kernel" in low:
+        return "ssd_scan_bwd"
     if any(m in low for m in _GEMM_MARKS):
         return "matmul"
     return "other"

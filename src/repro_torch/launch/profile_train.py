@@ -7,14 +7,17 @@ plan ``python -m repro_torch.launch.train`` trains).
     python -m repro_torch.launch.profile_train --arch gpt-1.3b --seq 512
     python -m repro_torch.launch.profile_train --arch gpt-1.3b --seq 512 \
         --cluster cluster-a --batch 128
+    python -m repro_torch.launch.profile_train --arch mamba2-370m \
+        --seq 2048 --cluster cluster-a --batch 32
 
 Needs a CUDA device.  After one warm-up step, the step runs twice: once
 bare, for the host wall time, and once under the profiler, for the device
 time of each kernel (the same window as ``profile_serve``).  Prints one
 JSON line: wall ms, device ms, the device's idle share, device ms by kind
-(flash attention forward and backward, matrix products, copies and casts,
-the other elementwise work: norms, activations, the loss, Adam) and the
-kernels that took most of it.
+(flash attention forward and backward, the SSD scan forward and backward,
+matrix products, copies and casts, the other elementwise work: norms,
+activations, the conv, the loss, Adam) and the kernels that took most of
+it.
 """
 
 from __future__ import annotations

@@ -22,6 +22,19 @@ gpt-1.3b at full width on the plan for the paper's Cluster A (one card)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \
         --seq 512 --batch 128 --runtime mpmd --cluster cluster-a --steps 3
+
+mamba2-370m at full width and depth on its Cluster A plan (8 ranks, m 7,
+7, 10, 2, 2, 2, 1, 1; the SSD scan's gradient from its CUDA backward
+kernel)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+        --seq 2048 --batch 32 --runtime mpmd --cluster cluster-a --steps 3
+
+and reduced, on the CPU::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+        --reduced --seq 64 --batch 32 --cluster cluster-a --steps 3 \
+        --device cpu
 """
 
 from __future__ import annotations

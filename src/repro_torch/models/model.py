@@ -10,7 +10,7 @@ Public API (plain functions over a params dict, plus :class:`DecoderLM`,
 the ``nn.Module`` that holds the parameters):
 
 * :func:`init_params`
-* :func:`loss_fn`       — training loss (chunked CE), dense stages
+* :func:`loss_fn`       — training loss (chunked CE), dense and SSM stages
 * :func:`forward_hidden` — activations for training
 * :func:`init_cache`
 * :func:`prefill`       — build KV / SSM caches, return last logits
@@ -227,11 +227,15 @@ def element_apply(cfg: ArchConfig, spec: StageSpec, bp: Any, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply ONE stage element (= one Cephalo FSDP unit) to ``x``.
-    Returns (y, aux); aux, the MoE router loss, is 0 for dense blocks."""
-    if spec.kind != "dense":
+    Returns (y, aux); aux, the MoE router loss, is 0 for dense and SSM
+    blocks."""
+    if spec.kind == "ssm":
+        y, _ = B.ssm_block_apply(bp, x, cfg)
+    elif spec.kind == "dense":
+        y, _ = B.dense_block_apply(bp, x, cfg, positions, local=spec.local)
+    else:
         raise NotImplementedError(f"training through {spec.kind!r} stages: "
                                   "later slice")
-    y, _ = B.dense_block_apply(bp, x, cfg, positions, local=spec.local)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -17,6 +17,11 @@
   grads are taken at those params.  Well conditioned: the reference's
   sqrt(v_hat) >= 1e-6, 100x Adam's eps.  Elements with no grad yet
   (unseen tokens' embedding rows) must not move at all.
+* mamba2-370m (SSM stages): the units' leaf order, shapes, shard sizes
+  and flat buffers equal the reference's, reduced and at full width, for
+  the parity-matrix ratios and those of the Cluster A plan at seq 2048,
+  batch 32; 2 loopback steps of reduced mamba2 from the same params:
+  losses within 1e-5, ``m`` and ``v`` within 1e-4 of their max.
 """
 
 import jax
@@ -218,3 +223,83 @@ def test_engine_init_state_and_substrates():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_train_step(cfg, plan)
+
+
+#: the state ratios of the plan ``launch.train`` solves for mamba2-370m on
+#: Cluster A at seq 2048, batch 32 (tests/test_torch_launch.py)
+MAMBA_RATIOS = [0.0, 0.0, 0.310546875, 0.23046875, 0.2294921875,
+                0.2294921875, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("reduced,ratios", [
+    (True, [0.6, 0.4]), (True, "plan"), (False, "plan")],
+    ids=["reduced-parity", "reduced-cluster-a", "full-cluster-a"])
+def test_mamba2_layout_matches_reference(reduced, ratios):
+    """The uneven FSDP layout of an SSM model: units, leaf order (the
+    reference's sorted keys), shapes and shard sizes; reduced, the flat
+    buffers and each rank's slice element by element."""
+    from repro_torch.launch import train as launch
+    jcfg, cfg = jax_arch("mamba2-370m"), get_arch("mamba2-370m")
+    if ratios == "plan":
+        args = launch.parser().parse_args(
+            ["--arch", "mamba2-370m", "--seq", "2048", "--batch", "32",
+             "--cluster", "cluster-a", "--device", "cpu"])
+        ratios = list(launch.solve_plan(args)[1].state_ratios())
+        assert ratios == MAMBA_RATIOS
+    if reduced:
+        jcfg, cfg = jcfg.reduced(), cfg.reduced()
+    jplanner, planner = JaxPlanner(jcfg, ratios), UnitPlanner(cfg, ratios)
+    assert [g.name for g in planner.groups] == \
+        [g.name for g in jplanner.groups] == \
+        ["embed", "head", "misc", "stage0"]
+    for g, jg in zip(planner.groups, jplanner.groups):
+        assert (g.count, g.layout.shapes, g.layout.size, g.layout.padded,
+                g.layout.shard_sizes) == \
+            (jg.count, jg.layout.shapes, jg.layout.size, jg.layout.padded,
+             jg.layout.shard_sizes)
+    if not reduced:
+        assert sum(g.layout.size * g.count for g in planner.groups) == \
+            419_825_152
+        return
+    tree = _filled(jcfg, seed=7)
+    jsub, sub = JaxSubstrate(jplanner), LoopbackSubstrate(planner, "cpu")
+    flats = sub.flatten_tree(params_from_numpy(tree, "cpu"))
+    jflats = jsub.flatten_tree(tree)
+    for name in jflats:
+        np.testing.assert_array_equal(flats[name].numpy(), jflats[name])
+    for r, js in enumerate(jsub.slice_flats(jflats)):
+        for name in js:
+            np.testing.assert_array_equal(
+                sub.slice_flats(flats)[r][name].numpy(), js[name])
+
+
+def test_mamba2_engine_matches_reference_loopback():
+    """Two loopback steps of reduced mamba2-370m on the parity-matrix plan,
+    from the same params: losses within 1e-5, exported ``m`` and ``v``
+    within 1e-4 of their max, collective counts equal."""
+    plan, jplan = _plans()
+    jcfg = jax_arch("mamba2-370m").reduced()
+    cfg = get_arch("mamba2-370m").reduced()
+    init = jax.device_get(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    stream = pipeline.SyntheticStream(pipeline.DataConfig(
+        cfg.vocab_size, SEQ, seed=2))
+    jeng = jax_build(jcfg, jplan, substrate="loopback", schedule="layered",
+                     adam=JaxAdam(lr=1e-3), seq_len=SEQ)
+    eng = build_train_step(cfg, plan, substrate="loopback",
+                           schedule="layered", adam=AdamConfig(lr=1e-3),
+                           seq_len=SEQ, device="cpu")
+    jstate = jeng.import_state({"step": 0, "p": init})
+    state = eng.import_state({"step": 0,
+                              "p": params_from_numpy(init, "cpu")})
+    for step in range(2):
+        big = stream.sample(step, plan.global_batch)
+        jstate, jloss = jeng.step(jstate, big)
+        state, loss = eng.step(state, big)
+        assert abs(loss - jloss) <= 1e-5, (step, loss, jloss)
+        got = _export(eng, state, lambda t: fsdp.tree_flatten(t)[0])
+        want = _export(jeng, jstate, jax.tree.leaves)
+        for k in "mv":
+            scale = max(np.abs(w).max() for w in want[k])
+            err = max(np.abs(g - w).max() for g, w in zip(got[k], want[k]))
+            assert err <= 1e-4 * scale, (step, k, err, scale)
+    assert eng.trainer.substrate.stats == jeng.trainer.substrate.stats

@@ -139,7 +139,7 @@ def test_check_takes_every_config_head_dim(arch):
 def test_build_finds_the_kernel_source():
     srcs = build.sources()
     assert set(srcs) == {"flash_attention", "flash_attention_bwd",
-                         "ssd_scan"}
+                         "ssd_scan", "ssd_scan_bwd"}
     src = srcs["flash_attention"]
     assert src.read_text().startswith("// Flash attention forward")
     assert srcs["flash_attention_bwd"].read_text().startswith(

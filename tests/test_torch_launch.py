@@ -76,6 +76,45 @@ def test_launcher_prints_the_reference_plan(extra, capsys, monkeypatch):
     assert len(got_steps) == len(want_steps) == 3
 
 
+MAMBA_ARGV = ["--arch", "mamba2-370m", "--cluster", "cluster-a", "--batch",
+              "32"]
+
+
+@pytest.mark.parametrize("extra", [["--reduced", "--steps", "2", "--seq",
+                                    "32"], ["--seq", "2048"]],
+                         ids=["reduced-run", "full-plan"])
+def test_launcher_plans_mamba2_as_the_reference(extra, capsys, monkeypatch):
+    """mamba2-370m on Cluster A at batch 32: reduced, the whole launcher
+    run (plan, memory report, prediction, 2 steps) prints the reference's
+    lines; at full width and seq 2048, the plan ``solve_plan`` prints and
+    returns is the reference's: m = 7, 7, 10, 2, 2, 2, 1, 1 (ell 1), 8
+    rank calls a step."""
+    argv = MAMBA_ARGV + extra
+    if "--reduced" in extra:
+        def jax_main(a):
+            monkeypatch.setattr(sys, "argv", ["train"] + a)
+            jax_launch.main()
+        got, got_steps = _run(launch.main, argv + ["--device", "cpu"],
+                              capsys)
+        want, want_steps = _run(jax_main, argv, capsys)
+        assert got == want
+        assert got[0].startswith("Plan[mamba2-370m-smoke @ cluster-a]")
+        assert len(got_steps) == len(want_steps) == 2
+        return
+    args = launch.parser().parse_args(argv + ["--device", "cpu"])
+    cfg, plan = launch.solve_plan(args)
+    got = capsys.readouterr().out
+    jcfg = jax_arch("mamba2-370m")
+    jplan = jax_launch.auto_solve(jax_launch.analytic_cluster_model(
+        jax_launch.CLUSTERS["cluster-a"](),
+        jax_launch.build_model_stats(jcfg, 2048)), 32)
+    assert got.splitlines() == jplan.summary().splitlines()
+    assert plan.to_json() == jplan.to_json()
+    assert [(r.m, r.ell) for r in plan.ranks] == \
+        [(m, 1) for m in (7, 7, 10, 2, 2, 2, 1, 1)]
+    assert cfg.n_layers == 48 and cfg.d_model == 1024
+
+
 class _Losses:
     """An engine as ``_train_loop`` sees it, its losses kept."""
 

@@ -1,6 +1,10 @@
 """The port's SSD scan: its plain version against the JAX package's Pallas
 kernel (interpret mode) and oracles on the CPU, and the CUDA kernel against
-the plain version on the card (skipped without one).
+the plain version on the card (skipped without one).  The backward: the
+plain version's autograd against ``jax.vjp`` of the reference's
+``ssd_chunked``, and the backward kernel's chunked algorithm, written out
+in plain torch, against the plain version's autograd on the CPU; the
+kernel itself against the plain autograd on the card.
 
 JAX is imported only by the tests that need it, so that the CUDA tests
 also run on a machine with PyTorch and no JAX:
@@ -13,7 +17,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_backward_reference,
+                                              ssd_scan_reference)
 
 # the cases of tests/test_kernels.py::SSD_CASES
 SSD_CASES = [
@@ -156,6 +161,35 @@ def test_build_finds_the_kernel_source():
     assert build._lib_path(src).parent == build.BUILD_DIR
 
 
+def test_build_finds_the_backward_kernel_source():
+    """The backward kernel is its own source, built beside the forward's;
+    it names the TPU kernel whose function it differentiates."""
+    src = build.sources()["ssd_scan_bwd"]
+    text = src.read_text()
+    assert text.startswith("// Backward of the Mamba2 SSD chunked scan")
+    assert "src/repro/kernels/ssd_scan/ssd_scan.py:72" in text
+    assert 'extern "C" int ssd_scan_bwd(' in text
+    assert "atomicAdd" not in text          # runs repeat bit for bit
+    assert build._lib_path(src).parent == build.BUILD_DIR
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::ssd_scan_kernel_mma<64, 128>(Params)",
+     "ssd_scan"),
+    ("void (anonymous namespace)::ssd_scan_bwd_kernel<__nv_bfloat16, 64, "
+     "128>(Params)", "ssd_scan_bwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel_mma<64>(Params)",
+     "flash_attention_bwd"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
+    ("void at::native::direct_copy_kernel_cuda", "copy"),
+    ("void at::native::vectorized_elementwise_kernel", "elementwise")])
+def test_profile_train_names_each_kernel_kind(name, kind):
+    """The training profile's kinds: the SSD scan's forward and backward
+    kernels apart from each other and from the elementwise work."""
+    from repro_torch.launch import profile_train
+    assert profile_train._kind(name) == kind
+
+
 def test_dtype_picks_the_variant():
     """bf16 goes to the tensor-core kernel, fp32 to the FMA kernel; every
     variant has a launch count, and the CPU path moves none of them."""
@@ -200,6 +234,159 @@ def test_bf16_takes_what_fp32_takes(p, n, off):
     for dtype in (torch.float32, torch.bfloat16):
         x, bm, cm = _shifted_views(b, h, l, p, n, off, dtype)
         ops._check(x, dt, a, bm, cm)
+
+
+def _cotangents(b, h, l, p, n, seed=9):
+    """h0, dy, dh_final as fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, p, n)).astype(np.float32),
+            rng.standard_normal((b, h, l, p)).astype(np.float32),
+            rng.standard_normal((b, h, p, n)).astype(np.float32))
+
+
+GRAD_NAMES = ("dx", "ddt", "da", "db", "dc", "dh0")
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("b,h,l,p,n,chunk", SSD_CASES, ids=CASE_IDS)
+def test_plain_backward_matches_jax(b, h, l, p, n, chunk, with_h0):
+    """Autograd of the plain version against ``jax.vjp`` of the reference's
+    ``ssd_chunked`` (layout (B, L, H, P)), cotangents on y and on the final
+    state.  dx, db, dc and dh0 within 1e-5 of their max (fp32 sums in
+    another order: sequential against chunked); ddt and da within 1e-4,
+    since both sum terms through the decays, which cancel in part."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.models.layers.ssd import ssd_chunked
+    x, dt, a, bm, cm = _inputs(b, h, l, p, n, seed=8)
+    h0, dy, dh_final = _cotangents(b, h, l, p, n)
+    args = [jnp.asarray(x.transpose(0, 2, 1, 3)),
+            jnp.asarray(dt.transpose(0, 2, 1)), jnp.asarray(a),
+            jnp.asarray(bm), jnp.asarray(cm)]
+    if with_h0:
+        args.append(jnp.asarray(h0))
+    _, vjp = jax.vjp(lambda *t: ssd_chunked(*t[:5], chunk,
+                                            h0=t[5] if with_h0 else None),
+                     *args)
+    jg = vjp((jnp.asarray(dy.transpose(0, 2, 1, 3)), jnp.asarray(dh_final)))
+    want = [np.asarray(jg[0]).transpose(0, 2, 1, 3),
+            np.asarray(jg[1]).transpose(0, 2, 1), *jg[2:5],
+            jg[5] if with_h0 else None]
+    got = ssd_scan_backward_reference(
+        *(torch.from_numpy(v) for v in (x, dt, a, bm, cm)),
+        torch.from_numpy(h0) if with_h0 else None, torch.from_numpy(dy),
+        torch.from_numpy(dh_final))
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        if w is None:
+            assert g is None
+            continue
+        tol = 1e-4 if name in ("ddt", "da") else 1e-5
+        assert _rel(g.numpy(), w) <= tol, name
+
+
+def _chunked_backward(x, dt, a, b, c, h0, dy, dh_final, q=ops.CHUNK):
+    """The backward kernel's algorithm in plain torch, fp32: pass 1 keeps
+    each chunk's start state, pass 2 walks the chunks in reverse with the
+    adjoint state g, as ``csrc/ssd_scan_bwd.cu`` says; positions past L
+    are zeros with dt = 0, da and db, dc are summed over batch and heads
+    last."""
+    bsz, hn, l, p = x.shape
+    n = b.shape[-1]
+    nc = -(-l // q)
+    pad = nc * q - l
+    x, dy = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (x, dy))
+    dt = torch.nn.functional.pad(dt, (0, pad))
+    b, c = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (b, c))
+    out = [torch.zeros_like(x), torch.zeros_like(dt), torch.zeros(bsz, hn),
+           torch.zeros(bsz, hn, nc * q, n), torch.zeros(bsz, hn, nc * q, n),
+           torch.zeros(bsz, hn, p, n)]
+    causal = torch.ones(q, q).tril().bool()
+    for bi in range(bsz):
+        for hi in range(hn):
+            def chunk(ci):
+                sl = slice(ci * q, (ci + 1) * q)
+                d = dt[bi, hi, sl]
+                la = torch.cumsum(d * a[hi], 0)
+                return (sl, x[bi, hi, sl], d, b[bi, sl], c[bi, sl],
+                        dy[bi, hi, sl], la, torch.exp(la),
+                        torch.exp(la[-1] - la))
+            hs = torch.zeros(p, n) if h0 is None else h0[bi, hi].clone()
+            starts = []
+            for ci in range(nc):
+                _, xc, d, bc, _, _, _, el, w = chunk(ci)
+                starts.append(hs)
+                hs = el[-1] * hs + (xc * (d * w)[:, None]).T @ bc
+            g = torch.zeros(p, n) if dh_final is None else \
+                dh_final[bi, hi].clone()
+            for ci in reversed(range(nc)):
+                sl, xc, d, bc, cc, dyc, la, el, w = chunk(ci)
+                hp = starts[ci]
+                gap = torch.where(causal, la[:, None] - la[None, :], 0.0)
+                e = torch.where(causal, torch.exp(gap), 0.0)
+                m = (cc @ bc.T) * e
+                dm = torch.where(causal, dyc @ (xc * d[:, None]).T, 0.0)
+                ds, gm = dm * e, dm * m
+                bgt = bc @ g.T
+                du = m.T @ dyc + w[:, None] * bgt
+                dw = d * (xc * bgt).sum(1)
+                dyh = dyc @ hp
+                dla = gm.sum(1) - gm.sum(0) + el * (cc * dyh).sum(1) - w * dw
+                dla[-1] += el[-1] * (hp * g).sum() + (w * dw).sum()
+                out[0][bi, hi, sl] = d[:, None] * du
+                out[3][bi, hi, sl] = ds.T @ cc + (w * d)[:, None] * (xc @ g)
+                out[4][bi, hi, sl] = ds @ bc + el[:, None] * dyh
+                g = el[-1] * g + (el[:, None] * dyc).T @ cc
+                dl = dla.flip(0).cumsum(0).flip(0)
+                out[1][bi, hi, sl] = (du * xc).sum(1) + a[hi] * dl
+                out[2][bi, hi] += (d * dl).sum()
+            out[5][bi, hi] = g
+    return (out[0][:, :, :l], out[1][:, :, :l], out[2].sum(0),
+            out[3].sum(1)[:, :l], out[4].sum(1)[:, :l],
+            None if h0 is None else out[5])
+
+
+@pytest.mark.parametrize("shape,slow,with_h0", [
+    ((2, 4, 128, 32, 16), False, False),
+    ((1, 2, 96, 64, 32), False, True),        # ragged L
+    ((1, 8, 64, 64, 128), True, True),        # mamba2-370m heads
+    ((1, 3, 150, 32, 16), True, True),        # ragged, three chunks
+], ids=["base", "ragged-h0", "mamba2-like-h0", "ragged-slow-h0"])
+def test_chunked_backward_design_matches_plain(shape, slow, with_h0):
+    """The kernel's chunked backward (recomputed start states, reverse pass
+    with the adjoint state, d la's reverse cumsum) against the plain
+    version's autograd: every grad within 1e-4 of its max (fp32 sums in
+    another order; the same bound as the kernel's fp32 check)."""
+    b, h, l, p, n = shape
+    x, dt, a, bm, cm = (torch.from_numpy(v)
+                        for v in _inputs(b, h, l, p, n, seed=8, slow=slow))
+    h0, dy, dh_final = (torch.from_numpy(v)
+                        for v in _cotangents(b, h, l, p, n))
+    h0 = h0 if with_h0 else None
+    got = _chunked_backward(x, dt, a, bm, cm, h0, dy, dh_final)
+    want = ssd_scan_backward_reference(x, dt, a, bm, cm, h0, dy, dh_final)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert _rel(g, w) <= 1e-4, name
+
+
+def test_cpu_gradient_takes_the_plain_version():
+    """On the CPU the wrapper differentiates through the plain version: the
+    grads are the plain backward's and no kernel is counted."""
+    x, dt, a, bm, cm = (torch.from_numpy(v).requires_grad_()
+                        for v in _inputs(1, 2, 40, 32, 16, seed=3))
+    _, dy, _ = _cotangents(1, 2, 40, 32, 16)
+    dy = torch.from_numpy(dy)
+    before = (ops.LAUNCHES, ops.BWD_LAUNCHES, dict(ops.BWD_VARIANT_LAUNCHES))
+    y, _ = ops.ssd_scan(x, dt, a, bm, cm)
+    got = torch.autograd.grad(y, (x, dt, a, bm, cm), dy)
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES,
+            dict(ops.BWD_VARIANT_LAUNCHES)) == before
+    want = ssd_scan_backward_reference(x, dt, a, bm, cm, None, dy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert set(ops.BWD_VARIANTS) == set(ops._DTYPES)
+    assert set(ops.BWD_VARIANT_LAUNCHES) == set(ops.BWD_VARIANTS.values())
 
 
 @pytest.fixture
@@ -317,18 +504,116 @@ def test_cuda_bf16_kernel_narrow_copies(cuda, off):
     _check_close(h_final, h_ref, 0.0)
 
 
+def _check_grads(got, want, dtype):
+    """Each grad against the plain autograd's: fp32 within 1e-4 of its
+    max|plain|; bf16 (both compute in fp32 from the same bf16 inputs, then
+    round dx, db, dc once to bf16) within 1e-3 max|plain| + 1e-2 |plain|,
+    elementwise."""
+    rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (0.0, 1e-4)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert (g is None) == (w is None), name
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        g, w = g.float(), w.float()
+        bound = atol * w.abs().max() + rtol * w.abs()
+        assert bool(((g - w).abs() <= bound).all()), name
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("grad_of", ["x", "dt", "a", "b", "c"])
-def test_cuda_kernel_refuses_a_gradient(cuda, grad_of):
-    """The kernel has no backward yet: on CUDA an input that requires grad
-    raises under grad mode, and runs without it (torch.no_grad)."""
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,slow", [
+    ((2, 4, 128, 32, 16), False),
+    ((1, 8, 64, 64, 128), False),
+    ((2, 4, 1000, 64, 128), True),            # ragged L, slow decay
+], ids=["base", "mamba2-like", "ragged-1000"])
+def test_cuda_backward_matches_plain(cuda, shape, slow, dtype, with_h0):
+    """The backward kernel, through autograd of ``ops.ssd_scan``, against
+    the plain version's autograd, cotangents on y and the final state;
+    one forward and one backward launch of the dtype's variant."""
+    b, h, l, p, n = shape
+    x, dt, a, bm, cm = (torch.from_numpy(v).to(cuda)
+                        for v in _inputs(b, h, l, p, n, seed=8, slow=slow))
+    h0, dy, dh_final = (torch.from_numpy(v).to(cuda)
+                        for v in _cotangents(b, h, l, p, n))
+    x, bm, cm, dy = (t.to(dtype) for t in (x, bm, cm, dy))
+    h0 = h0 if with_h0 else None
+    ins = [t if t is None else t.detach().requires_grad_()
+           for t in (x, dt, a, bm, cm, h0)]
+    live = [t for t in ins if t is not None]
+    before = (ops.LAUNCHES, ops.BWD_LAUNCHES,
+              ops.BWD_VARIANT_LAUNCHES[ops.BWD_VARIANTS[dtype]])
+    y, h_final = ops.ssd_scan(*ins)
+    got = iter(torch.autograd.grad((y, h_final), live, (dy, dh_final)))
+    got = [None if t is None else next(got) for t in ins]
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES,
+            ops.BWD_VARIANT_LAUNCHES[ops.BWD_VARIANTS[dtype]]) == \
+        tuple(c + 1 for c in before)
+    want = ssd_scan_backward_reference(x, dt, a, bm, cm, h0, dy, dh_final)
+    _check_grads(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_reads_the_model_views(cuda):
+    """mamba2-370m's heads through the strided views ``ssd_apply`` passes
+    (x, b, c column slices of one bf16 tensor, dt a transposed view), the
+    final state's cotangent unused (None), as in training."""
+    b, h, l, p, n = 2, 4, 300, 64, 128
+    x, dt, a, bm, cm = _inputs(b, h, l, p, n, seed=6, slow=True)
+    xbc = np.concatenate([x.transpose(0, 2, 1, 3).reshape(b, l, h * p), bm,
+                          cm], axis=-1)
+    xbc = torch.from_numpy(np.ascontiguousarray(xbc)).to(
+        cuda, torch.bfloat16).requires_grad_()
+    dtv = torch.from_numpy(np.ascontiguousarray(dt.transpose(0, 2, 1))).to(
+        cuda).requires_grad_()
+    av = torch.from_numpy(a).to(cuda).requires_grad_()
+    _, dy, _ = _cotangents(b, h, l, p, n)
+    dy = torch.from_numpy(dy).to(cuda, torch.bfloat16)
+
+    def run(fn):
+        views = (xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2),
+                 dtv.transpose(1, 2), av, xbc[..., h * p: h * p + n],
+                 xbc[..., h * p + n:])
+        return torch.autograd.grad(fn(*views)[0], (xbc, dtv, av), dy)
+    got = run(ops.ssd_scan)
+    want = run(ssd_scan_reference)
+    torch.cuda.synchronize()
+    _check_grads(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_repeats_bit_for_bit(cuda):
+    """The backward sums over positions, heads and batch rows in a fixed
+    order (no float atomics): two runs give the same bits."""
+    b, h, l, p, n = 3, 8, 700, 64, 128
+    x, dt, a, bm, cm = (torch.from_numpy(v).to(cuda)
+                        for v in _inputs(b, h, l, p, n, seed=4, slow=True))
+    h0, dy, dh_final = (torch.from_numpy(v).to(cuda)
+                        for v in _cotangents(b, h, l, p, n))
+    x, bm, cm, dy = (t.to(torch.bfloat16) for t in (x, bm, cm, dy))
+    runs = [ops._backward(x, dt, a, bm, cm, h0, dy, dh_final)
+            for _ in range(2)]
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_no_grad_launches_only_the_forward(cuda):
+    """Under ``torch.no_grad`` (serving) an input that requires grad runs
+    the forward kernel once and the backward never; with grad mode on, a
+    backward launches the backward kernel once."""
     x, dt, a, b, c = (torch.from_numpy(t).to(cuda)
                       for t in _inputs(1, 2, 64, 32, 16))
-    inputs = dict(x=x, dt=dt, a=a, b=b, c=c)
-    inputs[grad_of].requires_grad_()
-    before = ops.LAUNCHES
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.ssd_scan(**inputs)
+    x.requires_grad_()
+    before = (ops.LAUNCHES, ops.BWD_LAUNCHES)
     with torch.no_grad():
-        ops.ssd_scan(**inputs)
-    assert ops.LAUNCHES == before + 1
+        y, _ = ops.ssd_scan(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    assert not y.requires_grad
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    y, _ = ops.ssd_scan(x, dt, a, b, c)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (before[0] + 2, before[1] + 1)

@@ -5,6 +5,8 @@ on the same params (loaded from the JAX init through numpy), the same
 tokens and weights.  Tolerances: the loss within 1e-5 relative, each grad
 leaf within 1e-4 of its max|grad| (fp32 sums in another order).  Also
 Adam element by element against ``repro.optim.adam`` over 3 steps.
+mamba2-370m's training state: fp32, its leaves carried from the JAX
+package leaf for leaf.
 """
 
 import jax
@@ -24,8 +26,9 @@ from repro_torch.models import model as M
 from repro_torch.optim import adam as tadam
 
 #: tiny-llama: GQA, swiglu, RoPE; gpt-1.3b: gelu MLP with biases;
-#: bert-large: non-causal, layernorm, learned positions
-ARCHS = ["tiny-llama", "gpt-1.3b", "bert-large"]
+#: bert-large: non-causal, layernorm, learned positions; mamba2-370m: SSM
+#: stages (conv, SSD scan, gated norm), no attention
+ARCHS = ["tiny-llama", "gpt-1.3b", "bert-large", "mamba2-370m"]
 
 
 def _batch(cfg, bsz=2, seq=24, seed=0):
@@ -135,6 +138,33 @@ def test_learned_positions_and_fp32_storage():
     vit = get_arch("vit-g").reduced()
     stub = M.init_params(vit, torch.Generator(), "cpu")["frontend_proj"]
     assert tuple(stub.shape) == (vit.frontend_dim, vit.d_model)
+
+
+def test_mamba2_training_state_and_conversion():
+    """mamba2-370m's training state is fp32 throughout (419,825,152
+    parameters at full width, 48 SSM layers); the JAX package's params
+    carry across leaf for leaf, and stored in bf16 the SSM block's decay,
+    step, skip and conv-bias leaves and the norms stay fp32 and exact."""
+    full = get_arch("mamba2-370m")
+    assert [(s.kind, s.count) for s in M.build_stages(full)] == [("ssm", 48)]
+    shapes = M.init_params(full, torch.Generator(), "meta", all_fp32=True)
+    leaves, _ = fsdp.tree_flatten(shapes)
+    assert {t.dtype for t in leaves} == {torch.float32}
+    assert sum(t.numel() for t in leaves) == 419_825_152
+    cfg = jax_arch("mamba2-370m").reduced()
+    tree = jax.device_get(JM.init_params(cfg, jax.random.PRNGKey(2)))
+    jleaves = jax.tree.leaves(tree)
+    for dtype in (None, torch.bfloat16):
+        params = params_from_numpy(tree, "cpu", dtype)
+        got, _ = fsdp.tree_flatten(params)
+        assert [tuple(t.shape) for t in got] == [x.shape for x in jleaves]
+        ssd = params["stages"][0]["ssd"]
+        for key in ("a_log", "dt_bias", "d_skip", "conv_b"):
+            assert ssd[key].dtype == torch.float32
+        assert ssd["in_proj"].dtype == (dtype or torch.float32)
+        for t, x in zip(got, jleaves):
+            if t.dtype == torch.float32:
+                np.testing.assert_array_equal(t.numpy(), x)
 
 
 def test_adam_matches_reference_over_three_steps():
