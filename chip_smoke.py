@@ -61,20 +61,24 @@ Phases, each printing one JSON line:
              the forward with its log-sum-exp, of each backward kernel, of
              the plain backward and of SDPA's at the gpt-1.3b training
              shape, beside the least time the card could take;
-9. ssd_bwd — the SSD scan's backward kernel (through the autograd
-             function of ``ops.ssd_scan``) against the plain version's
+9. ssd_bwd — the SSD scan's backward kernels (through the autograd
+             function of ``ops.ssd_scan``: fp32 on scalar FMAs, bf16 on
+             tensor cores) against the plain version's
              autograd on the card, dx, ddt, da, db, dc and dh0 for seeded
              cotangents on y and the final state: the forward's cases and
              its ragged slow-decay one, each from zero and from a given
              state, in fp32 (|err| <= 1e-4 max|plain|) and bf16 (|err| <=
              1e-3 max|plain| + 1e-2 |plain|), and mamba2-370m's heads as
              the model's views (L 2048, and a ragged L 1025 from a given
-             state); each case must launch the backward once; two runs at
-             the training shape must agree bit for bit; its ptxas
-             registers and spills; its time at the training shape of the
+             state); each case must launch its dtype's backward once; two
+             runs at the training shape must agree bit for bit; the HMMA
+             count of the bf16 kernel's SASS (it fails at 0); both kernels'
+             ptxas registers and spills, shared memory a block and blocks
+             an SM; the bf16 kernel's time at the training shape of the
              largest rank call of the mamba2 plan below (B 10, L 2048,
              bf16 views) beside the least time the card could take and the
-             plain backward's time (at B 2: it keeps a state per position);
+             plain backward's time (at B 2: it keeps a state per position),
+             and the wrapper's whole call (its dB, dC partial sums);
 10. train_grads — fp32, TF32 off: the loss and every param grad of
              reduced gpt-1.3b, bert-large (through the flash kernels) and
              mamba2-370m (P 32, N 16, through the SSD kernels) on the card
@@ -116,8 +120,8 @@ Phases, each printing one JSON line:
              2, 2, 1, 1: eight rank calls a step), 1 warm-up step and 2
              timed ones; finite losses, every rank's shard changed by each
              step, and per step 2 x 48 x 8 SSD forward launches (all
-             ``bf16-mma``) and 48 x 8 backward launches (``bf16-fma``), no
-             flash launch.
+             ``bf16-mma``) and 48 x 8 backward launches (all ``bf16-mma``:
+             the tensor-core backward), no flash launch.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches on its
 main-path run (serving for the forwards, phase ``train`` for the flash
@@ -131,6 +135,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -308,7 +313,7 @@ def _ptxas_usage(logs: dict) -> dict:
             if hit:
                 m = re.search(r"(flash_fwd_kernel_\w+?|"
                               r"flash_bwd_\w+?_kernel(?:_mma)?|"
-                              r"ssd_scan_bwd_kernel|"
+                              r"ssd_scan_bwd_kernel(?:_mma)?|"
                               r"ssd_scan_kernel\w*?)I(\w+?)EEv", hit[1])
                 func = f"{m[1]}<{m[2]}>" if m else hit[1]
                 usage[func] = ""
@@ -406,7 +411,7 @@ def _sass_counts(name: str) -> dict:
         if hit:
             m = re.search(r"(flash_fwd_kernel_\w+?|"
                           r"flash_bwd_\w+?_kernel(?:_mma)?|"
-                          r"ssd_scan_bwd_kernel|"
+                          r"ssd_scan_bwd_kernel(?:_mma)?|"
                           r"ssd_scan_kernel\w*?)I", hit[1])
             func = m[1] if m else hit[1][:40]
             counts.setdefault(func, {"HMMA": 0, "HGMMA": 0})
@@ -979,12 +984,37 @@ def _ssd_bwd_bound(shape, dtype):
     return _least_ms(nbytes, flops, dtype)
 
 
+def _ssd_bwd_occupancy() -> dict:
+    """Shared memory a block and blocks an SM of each backward kernel at
+    mamba2-370m's heads (P 64, N 128), from the CUDA runtime."""
+    fn = build.load("ssd_scan_bwd").ssd_scan_bwd_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    out = {}
+    for name, dtype in (("ssd_scan_bwd_kernel", 0),
+                        ("ssd_scan_bwd_kernel_mma", 1)):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        rc = fn(dtype, 64, 128, ctypes.byref(smem), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{name}: occupancy query failed: CUDA "
+                               f"error {rc}")
+        out[name] = {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+    return out
+
+
 def phase_ssd_bwd() -> dict:
-    """The SSD backward kernel against the plain version's autograd on the
-    card; its time at the training shape beside its bound and the plain
-    backward's."""
+    """The SSD backward kernels against the plain version's autograd on
+    the card; the bf16 kernel's tensor-core instructions, registers and
+    occupancy; its time at the training shape beside its bound, the plain
+    backward's and the wrapper's whole call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sass = _sass_counts("ssd_scan_bwd")
+    if sass is not None and \
+            sass.get("ssd_scan_bwd_kernel_mma", {}).get("HMMA", 0) == 0:
+        raise AssertionError(f"bf16 SSD backward kernel: no tensor-core "
+                             f"instructions in its SASS: {sass}")
+    occupancy = _ssd_bwd_occupancy()
     errs = {}
     h0_gen = torch.Generator("cuda").manual_seed(3)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1041,8 +1071,10 @@ def phase_ssd_bwd() -> dict:
           "dtype": "bfloat16", "variant": variant,
           "ptxas": {k: v for k, v in PTXAS.items()
                     if k.startswith("ssd_scan_bwd")},
+          "sass": sass, "occupancy_p64_n128": occupancy,
           "kernel_ms": kernel_ms, "kernel_ms_repeat": kernel_ms_2,
-          "call_ms": call_ms, "plain_ms": plain_ms,
+          "call_ms": call_ms, "call_minus_kernel_ms": call_ms - kernel_ms,
+          "plain_ms": plain_ms,
           "plain_batch": SSD_PLAIN_BATCH, "plain_bound_ms": plain_bound,
           "library_ms": None,
           "library_note": "no PyTorch call computes the SSD scan's "
@@ -1467,14 +1499,14 @@ def phase_plan_train() -> dict:
 def _check_ssm_train_launches(phase: str, n: int) -> dict:
     """The SSD launches since the counts were zeroed: each of ``n`` layer
     calls (rank calls times layers) runs the scan's forward twice
-    (checkpointed, bf16 on tensor cores) and its backward once (bf16 in,
-    fp32 FMAs); no flash kernel runs."""
+    (checkpointed) and its backward once, all bf16 on tensor cores; no
+    flash kernel runs."""
     launches = {"ssd_scan": ssd_ops.LAUNCHES,
                 "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES}
     if launches != {"ssd_scan": 2 * n, "ssd_scan_bwd": n} or \
             ssd_ops.VARIANT_LAUNCHES != {"fp32-fma": 0, "bf16-mma": 2 * n} \
             or ssd_ops.BWD_VARIANT_LAUNCHES != {"fp32-fma": 0,
-                                                "bf16-fma": n}:
+                                                "bf16-mma": n}:
         raise AssertionError(f"{phase}: SSD launches {launches} (forward "
                              f"{ssd_ops.VARIANT_LAUNCHES}, backward "
                              f"{ssd_ops.BWD_VARIANT_LAUNCHES}), expected "

@@ -13,10 +13,12 @@ copied.
 
 Where grad mode is on and an input requires grad, CUDA tensors go through
 :class:`SSDScan`, a ``torch.autograd.Function``: its forward launches the
-forward kernel, and its backward the backward kernel of
-``csrc/ssd_scan_bwd.cu`` (scalar fp32 FMAs for fp32 and bf16 inputs), or
-raises; it never takes the plain version.  CPU tensors take the plain
-version through plain autograd.
+forward kernel, and its backward a kernel of ``csrc/ssd_scan_bwd.cu``, or
+raises; it never takes the plain version.  The dtype picks the backward
+kernel as it picks the forward's: bf16 runs ``ssd_scan_bwd_kernel_mma``
+on tensor cores (``bf16-mma``; its fp32 operands split into bf16 hi + lo),
+fp32 the scalar ``ssd_scan_bwd_kernel`` (``fp32-fma``).  CPU tensors take
+the plain version through plain autograd.
 """
 
 from __future__ import annotations
@@ -37,14 +39,14 @@ LAUNCHES = 0
 VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
 #: Launches of the backward kernel, apart from the forward ones above.
 BWD_LAUNCHES = 0
-#: The backward's launches by input dtype (both on scalar fp32 FMAs).
-BWD_VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-fma": 0}
+#: The backward's launches by kernel variant.
+BWD_VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
 
 HEAD_DIMS = (32, 64)               # P instantiated in the kernel
 STATE_DIMS = (16, 32, 64, 128)     # N instantiated in the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}
-BWD_VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-fma"}
+BWD_VARIANTS = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}
 CHUNK = 64                         # positions per chunk of both kernels
 _FN = None
 _BWD_FN = None
@@ -200,12 +202,14 @@ def _backward(x, dt, a, b, c, h0, dy, dh_final):
     (dx, ddt, da, db, dc, dh0; dh0 is None without h0) for the cotangents
     ``dy`` of y and ``dh_final`` of the final state (None for zero).
 
-    The kernel writes da per (batch, head) and db, dc per head, fp32;
-    they are summed here over batch and heads by ``torch.sum``, in a fixed
-    order, so a rerun gives the same bits.  dx and ddt are stored as
-    (B, L, H, P) and (B, L, H) and returned as their (B, H, L, ·) views,
-    the layout of the model's x and dt.  Scratch: the state at the start
-    of each chunk, (B, H, ceil(L / 64), P, N) fp32."""
+    bf16 inputs launch ``ssd_scan_bwd_kernel_mma`` (tensor cores), fp32
+    ones ``ssd_scan_bwd_kernel`` (scalar FMAs).  Either kernel writes da
+    per (batch, head) and db, dc per head, fp32; they are summed here over
+    batch and heads by ``torch.sum``, in a fixed order, so a rerun gives
+    the same bits.  dx and ddt are stored as (B, L, H, P) and (B, L, H)
+    and returned as their (B, H, L, ·) views, the layout of the model's x
+    and dt.  Scratch: the state at the start of each chunk, P N fp32 per
+    chunk and (batch, head), in a layout of the kernel's own."""
     global BWD_LAUNCHES
     _check(x, dt, a, b, c, h0)
     bsz, h, l, p = x.shape

@@ -169,6 +169,8 @@ def test_build_finds_the_backward_kernel_source():
     assert text.startswith("// Backward of the Mamba2 SSD chunked scan")
     assert "src/repro/kernels/ssd_scan/ssd_scan.py:72" in text
     assert 'extern "C" int ssd_scan_bwd(' in text
+    assert "ssd_scan_bwd_kernel_mma" in text
+    assert "mma.sync.aligned.m16n8k16" in text
     assert "atomicAdd" not in text          # runs repeat bit for bit
     assert build._lib_path(src).parent == build.BUILD_DIR
 
@@ -178,6 +180,8 @@ def test_build_finds_the_backward_kernel_source():
      "ssd_scan"),
     ("void (anonymous namespace)::ssd_scan_bwd_kernel<__nv_bfloat16, 64, "
      "128>(Params)", "ssd_scan_bwd"),
+    ("void (anonymous namespace)::ssd_scan_bwd_kernel_mma<64, 128>(Params)",
+     "ssd_scan_bwd"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel_mma<64>(Params)",
      "flash_attention_bwd"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
@@ -191,17 +195,21 @@ def test_profile_train_names_each_kernel_kind(name, kind):
 
 
 def test_dtype_picks_the_variant():
-    """bf16 goes to the tensor-core kernel, fp32 to the FMA kernel; every
-    variant has a launch count, and the CPU path moves none of them."""
-    assert ops.VARIANTS == {torch.float32: "fp32-fma",
-                            torch.bfloat16: "bf16-mma"}
+    """bf16 goes to the tensor-core kernels, fp32 to the FMA kernels, in
+    the forward and in the backward; every variant has a launch count, and
+    the CPU path moves none of them."""
+    want = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}
+    assert ops.VARIANTS == want and ops.BWD_VARIANTS == want
     assert set(ops.VARIANT_LAUNCHES) == set(ops.VARIANTS.values())
+    assert set(ops.BWD_VARIANT_LAUNCHES) == set(ops.BWD_VARIANTS.values())
     assert set(ops.VARIANTS) == set(ops._DTYPES)
-    before = dict(ops.VARIANT_LAUNCHES)
+    before = (dict(ops.VARIANT_LAUNCHES), dict(ops.BWD_VARIANT_LAUNCHES))
     x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(1, 2, 16, 32, 16))
     for dtype in ops.VARIANTS:
-        ops.ssd_scan(x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype))
-    assert ops.VARIANT_LAUNCHES == before
+        ins = [t.to(dtype).requires_grad_() for t in (x, bm, cm)]
+        y, _ = ops.ssd_scan(ins[0], dt, a, ins[1], ins[2])
+        y.float().sum().backward()
+    assert (ops.VARIANT_LAUNCHES, ops.BWD_VARIANT_LAUNCHES) == before
 
 
 def _shifted_views(b, h, l, p, n, off, dtype=torch.bfloat16, xbc=None):
@@ -284,12 +292,34 @@ def test_plain_backward_matches_jax(b, h, l, p, n, chunk, with_h0):
         assert _rel(g.numpy(), w) <= tol, name
 
 
-def _chunked_backward(x, dt, a, b, c, h0, dy, dh_final, q=ops.CHUNK):
+# The fp32 operands of the bf16 kernel's tensor-core products, each split
+# into bf16 hi + lo: B' = B o dt exp(la_Q - la) (the chunk states), M (in
+# M^T dy), dS (in dS B and dS^T C), the adjoint g (in B g^T and x g),
+# h_prev (in dy h_prev) and el o dy (in the adjoint's update).
+SPLIT_OPERANDS = ("b_prime", "m", "ds", "g", "h_prev", "el_dy")
+
+
+def _chunked_backward(x, dt, a, b, c, h0, dy, dh_final, q=ops.CHUNK,
+                      split=None):
     """The backward kernel's algorithm in plain torch, fp32: pass 1 keeps
     each chunk's start state, pass 2 walks the chunks in reverse with the
     adjoint state g, as ``csrc/ssd_scan_bwd.cu`` says; positions past L
     are zeros with dt = 0, da and db, dc are summed over batch and heads
-    last."""
+    last.
+
+    ``split`` (a set of names from ``SPLIT_OPERANDS``) emulates the bf16
+    kernel instead: x, dy, b, c enter as they are (bf16, exact); each
+    fp32 operand of a tensor-core product is rounded to bf16, hi + lo where
+    its name is in ``split``, hi alone where it is not; sums stay fp32;
+    dx, db and dc are rounded once to bf16 at the end."""
+    def rnd(v, name):
+        if split is None:
+            return v
+        hi = v.to(torch.bfloat16).float()
+        if name not in split:
+            return hi
+        return hi + (v - hi).to(torch.bfloat16).float()
+    x, b, c, dy = (t.float() for t in (x, b, c, dy))
     bsz, hn, l, p = x.shape
     n = b.shape[-1]
     nc = -(-l // q)
@@ -315,7 +345,8 @@ def _chunked_backward(x, dt, a, b, c, h0, dy, dh_final, q=ops.CHUNK):
             for ci in range(nc):
                 _, xc, d, bc, _, _, _, el, w = chunk(ci)
                 starts.append(hs)
-                hs = el[-1] * hs + (xc * (d * w)[:, None]).T @ bc
+                hs = el[-1] * hs + xc.T @ rnd(bc * (d * w)[:, None],
+                                              "b_prime")
             g = torch.zeros(p, n) if dh_final is None else \
                 dh_final[bi, hi].clone()
             for ci in reversed(range(nc)):
@@ -324,24 +355,27 @@ def _chunked_backward(x, dt, a, b, c, h0, dy, dh_final, q=ops.CHUNK):
                 gap = torch.where(causal, la[:, None] - la[None, :], 0.0)
                 e = torch.where(causal, torch.exp(gap), 0.0)
                 m = (cc @ bc.T) * e
-                dm = torch.where(causal, dyc @ (xc * d[:, None]).T, 0.0)
+                dm = torch.where(causal, (dyc @ xc.T) * d[None, :], 0.0)
                 ds, gm = dm * e, dm * m
-                bgt = bc @ g.T
-                du = m.T @ dyc + w[:, None] * bgt
+                gr, dsr = rnd(g, "g"), rnd(ds, "ds")
+                bgt = bc @ gr.T
+                du = rnd(m, "m").T @ dyc + w[:, None] * bgt
                 dw = d * (xc * bgt).sum(1)
-                dyh = dyc @ hp
+                dyh = dyc @ rnd(hp, "h_prev")
                 dla = gm.sum(1) - gm.sum(0) + el * (cc * dyh).sum(1) - w * dw
                 dla[-1] += el[-1] * (hp * g).sum() + (w * dw).sum()
                 out[0][bi, hi, sl] = d[:, None] * du
-                out[3][bi, hi, sl] = ds.T @ cc + (w * d)[:, None] * (xc @ g)
-                out[4][bi, hi, sl] = ds @ bc + el[:, None] * dyh
-                g = el[-1] * g + (el[:, None] * dyc).T @ cc
+                out[3][bi, hi, sl] = dsr.T @ cc + (w * d)[:, None] * (xc @ gr)
+                out[4][bi, hi, sl] = dsr @ bc + el[:, None] * dyh
+                g = el[-1] * g + rnd(el[:, None] * dyc, "el_dy").T @ cc
                 dl = dla.flip(0).cumsum(0).flip(0)
                 out[1][bi, hi, sl] = (du * xc).sum(1) + a[hi] * dl
                 out[2][bi, hi] += (d * dl).sum()
             out[5][bi, hi] = g
-    return (out[0][:, :, :l], out[1][:, :, :l], out[2].sum(0),
-            out[3].sum(1)[:, :l], out[4].sum(1)[:, :l],
+    low = (lambda t: t) if split is None else \
+        (lambda t: t.to(torch.bfloat16))
+    return (low(out[0][:, :, :l]), out[1][:, :, :l], out[2].sum(0),
+            low(out[3].sum(1)[:, :l]), low(out[4].sum(1)[:, :l]),
             None if h0 is None else out[5])
 
 
@@ -368,6 +402,76 @@ def test_chunked_backward_design_matches_plain(shape, slow, with_h0):
         assert (g is None) == (w is None), name
         if w is not None:
             assert _rel(g, w) <= 1e-4, name
+
+
+# the shapes of test_chunked_backward_design_matches_plain, and mamba2's
+# heads over 16 chunks with slow decay (the card's ragged-1000 case)
+BF16_DESIGN_CASES = {
+    "base": ((2, 4, 128, 32, 16), False, False),
+    "ragged-h0": ((1, 2, 96, 64, 32), False, True),
+    "mamba2-like-h0": ((1, 8, 64, 64, 128), True, True),
+    "ragged-slow-h0": ((1, 3, 150, 32, 16), True, True),
+    "mamba2-slow-1000": ((2, 4, 1000, 64, 128), True, False),
+}
+_BF16_DESIGN = {}
+
+
+def _bf16_design_case(name):
+    """bf16 x, b, c, dy (and fp32 dt, a, h0, dh_final) of a design case,
+    and the plain version's autograd on them; cached."""
+    if name not in _BF16_DESIGN:
+        shape, slow, with_h0 = BF16_DESIGN_CASES[name]
+        b, h, l, p, n = shape
+        x, dt, a, bm, cm = (torch.from_numpy(v) for v in
+                            _inputs(b, h, l, p, n, seed=8, slow=slow))
+        h0, dy, dh_final = (torch.from_numpy(v)
+                            for v in _cotangents(b, h, l, p, n))
+        x, bm, cm, dy = (t.to(torch.bfloat16) for t in (x, bm, cm, dy))
+        ins = (x, dt, a, bm, cm, h0 if with_h0 else None, dy, dh_final)
+        _BF16_DESIGN[name] = ins, ssd_scan_backward_reference(*ins)
+    return _BF16_DESIGN[name]
+
+
+def _bf16_over(got, want):
+    """The largest |got - want| / (1e-3 max|want| + 1e-2 |want|) over
+    every grad: at most 1 within the bf16 kernel's tolerance."""
+    over = 0.0
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert (g is None) == (w is None), name
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        g, w = g.float(), w.float()
+        bound = 1e-3 * w.abs().max() + 1e-2 * w.abs()
+        over = max(over, ((g - w).abs() / bound).max().item())
+    return over
+
+
+@pytest.mark.parametrize("name", list(BF16_DESIGN_CASES))
+def test_bf16_backward_design_within_tolerance(name):
+    """The bf16 kernel's numerical design (bf16 inputs exact, the six fp32
+    operands split hi + lo, fp32 sums, dx, db, dc rounded once) against
+    the plain version's autograd on the same bf16 inputs, within the
+    card's bf16 tolerance 1e-3 max|plain| + 1e-2 |plain| for every grad."""
+    ins, want = _bf16_design_case(name)
+    got = _chunked_backward(*ins, split=set(SPLIT_OPERANDS))
+    assert _bf16_over(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("operand", SPLIT_OPERANDS)
+def test_bf16_backward_needs_each_lo_plane(operand):
+    """Rounding any one of the six split operands to bf16 alone (its lo
+    plane dropped) misses that tolerance on some design case."""
+    overs = {}
+    for name in BF16_DESIGN_CASES:
+        ins, want = _bf16_design_case(name)
+        overs[name] = _bf16_over(
+            _chunked_backward(*ins, split=set(SPLIT_OPERANDS) - {operand}),
+            want)
+        if overs[name] > 1.0:
+            return
+    pytest.fail(f"{operand} without its lo plane is within the tolerance "
+                f"on every case: {overs}")
 
 
 def test_cpu_gradient_takes_the_plain_version():
@@ -531,7 +635,8 @@ def _check_grads(got, want, dtype):
 def test_cuda_backward_matches_plain(cuda, shape, slow, dtype, with_h0):
     """The backward kernel, through autograd of ``ops.ssd_scan``, against
     the plain version's autograd, cotangents on y and the final state;
-    one forward and one backward launch of the dtype's variant."""
+    one forward and one backward launch of the dtype's variant (bf16 on
+    the tensor-core kernel, ``bf16-mma``)."""
     b, h, l, p, n = shape
     x, dt, a, bm, cm = (torch.from_numpy(v).to(cuda)
                         for v in _inputs(b, h, l, p, n, seed=8, slow=slow))
@@ -542,15 +647,16 @@ def test_cuda_backward_matches_plain(cuda, shape, slow, dtype, with_h0):
     ins = [t if t is None else t.detach().requires_grad_()
            for t in (x, dt, a, bm, cm, h0)]
     live = [t for t in ins if t is not None]
+    variant = {torch.float32: "fp32-fma", torch.bfloat16: "bf16-mma"}[dtype]
     before = (ops.LAUNCHES, ops.BWD_LAUNCHES,
-              ops.BWD_VARIANT_LAUNCHES[ops.BWD_VARIANTS[dtype]])
+              dict(ops.BWD_VARIANT_LAUNCHES))
     y, h_final = ops.ssd_scan(*ins)
     got = iter(torch.autograd.grad((y, h_final), live, (dy, dh_final)))
     got = [None if t is None else next(got) for t in ins]
     torch.cuda.synchronize()
-    assert (ops.LAUNCHES, ops.BWD_LAUNCHES,
-            ops.BWD_VARIANT_LAUNCHES[ops.BWD_VARIANTS[dtype]]) == \
-        tuple(c + 1 for c in before)
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert ops.BWD_VARIANT_LAUNCHES == {
+        k: c + (k == variant) for k, c in before[2].items()}
     want = ssd_scan_backward_reference(x, dt, a, bm, cm, h0, dy, dh_final)
     _check_grads(got, want, dtype)
 
