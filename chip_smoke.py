@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
              model passes); the count of HMMA/HGMMA instructions in each
              kernel's SASS (``cuobjdump``); times of kernel, plain version
              and SDPA at the serving shape, beside the least time the card
-             could take;
+             could take; the same, in bf16, at the MoE models' prefill
+             shapes (qwen3: 32 query heads over 4 KV heads; mixtral: over
+             8, window 4096; D 128);
 4. serve   — ``launch.serve.serve`` on llama-7b at full width (bf16, random
              weights from a seed): batch 8, prompt 512, 32 generated tokens;
              the prefill must launch the bf16 kernel once per layer;
@@ -41,7 +43,16 @@ Phases, each printing one JSON line:
              generated tokens; the prefill must launch the bf16 SSD kernel
              once per layer and the flash kernel never (and no serve a
              backward kernel);
-7. consistency — fp32, TF32 off, full width, for llama-7b and mamba2-370m:
+6b. serve_qwen3_moe, serve_mixtral — ``launch.serve.serve`` on the MoE
+             models at the serving phase's batch, prompt and tokens (bf16,
+             random weights from a seed, the drop-free expert dispatch):
+             qwen3-moe-30b-a3b at full width and depth (48 layers, 128
+             experts, top-8), mixtral-8x7b at full width cut to 24 of its
+             32 layers (the card does not hold 32); the prefill must launch
+             the flash kernel once per layer, no serve a backward kernel;
+             each phase starts with the earlier phases' memory freed;
+7. consistency — fp32, TF32 off, full width, for llama-7b, mamba2-370m
+             and qwen3-moe-30b-a3b (4 layers: 48 in fp32 need 122 GB):
              the last logits of a prefill of S+1 tokens against a prefill
              of S tokens and one decode step (the kernel path against the
              plain decode path), within 2e-3 of max|logits|; and each model
@@ -55,12 +66,15 @@ Phases, each printing one JSON line:
              transposed views, in fp32 (the FMA kernels; |err| <= 2e-5
              max|plain|) and bf16 (the tensor-core kernels; |err| <= 1e-3
              max|plain| + 1e-2 |plain|), and in bf16 also gemma-2b's D 256
-             (MQA) and vit-e's D 112 (non-causal, ragged S 257) as views;
+             (MQA), vit-e's D 112 (non-causal, ragged S 257) and qwen3's
+             training shape (GQA 32/4, D 128: dK, dV sum 8 query heads) as
+             views;
              each case must launch its dtype's variant once per kernel; the
              HMMA count of both bf16 kernels' SASS (it fails at 0); times of
              the forward with its log-sum-exp, of each backward kernel, of
              the plain backward and of SDPA's at the gpt-1.3b training
-             shape, beside the least time the card could take;
+             shape, beside the least time the card could take, and of the
+             backward kernels and SDPA's backward at qwen3's;
 9. ssd_bwd — the SSD scan's backward kernels (through the autograd
              function of ``ops.ssd_scan``: fp32 on scalar FMAs, bf16 on
              tensor cores) against the plain version's
@@ -80,7 +94,9 @@ Phases, each printing one JSON line:
              plain backward's time (at B 2: it keeps a state per position),
              and the wrapper's whole call (its dB, dC partial sums);
 10. train_grads — fp32, TF32 off: the loss and every param grad of
-             reduced gpt-1.3b, bert-large (through the flash kernels) and
+             reduced gpt-1.3b, bert-large, mixtral-8x7b (through the flash
+             kernels; mixtral's capacity dispatch on tokens of 8 ids, so
+             that it drops, the same assignments on both devices) and
              mamba2-370m (P 32, N 16, through the SSD kernels) on the card
              against the same on the CPU (plain versions), within 1e-4 of
              each leaf's max|grad|;
@@ -93,6 +109,9 @@ Phases, each printing one JSON line:
              by each step, and the flash launches the plan, the schedule
              and the per-layer checkpointing predict, every backward launch
              on the bf16 tensor-core kernels;
+11b. train_moe — the same on qwen3-moe-30b-a3b at full width cut to 2
+             layers (1.87 B parameters: the vocabulary of 151,936 is most
+             of them), the capacity dispatch (each rank call its own);
 12. profile — the profiler (``core/profiler.py``) on the card: one
              gpt-1.3b layer at seq 512 in bf16, forward and backward, timed
              by CUDA events at m = 1, 2, 3, 4, 6, 8, 12; the piecewise fit
@@ -123,11 +142,12 @@ Phases, each printing one JSON line:
              ``bf16-mma``) and 48 x 8 backward launches (all ``bf16-mma``:
              the tensor-core backward), no flash launch.
 
-Then a line ``{"kernels": [...]}`` with each kernel's launches on its
-main-path run (serving for the forwards, phase ``train`` for the flash
-backward, the timed steps of ``plan_train_mamba2`` for the SSD backward;
-a planned step's launches beside them), its error and its times, and
-last
+Then the script's wall time, the card's name and power limit, a line
+``{"kernels": [...]}`` with each kernel's launches on its main-path run
+(serving for the forwards, phase ``train`` for the flash backward, the
+timed steps of ``plan_train_mamba2`` for the SSD backward; a planned
+step's launches and the MoE phases' beside them), its error and its
+times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -175,6 +195,7 @@ from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.layers import moe  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of the tensor cores (bf16) and of the fp32 pipe
@@ -202,6 +223,14 @@ HEAD_DIM_CASES = {
     "gemma-2b-d256": (2, 8, 1, 512, 512, 256, True, 0, 0.0),
     "ragged-1000": (2, 32, 32, 1000, 1000, 128, True, 0, 0.0),
 }
+# the flash kernel at the MoE models' GQA shapes: their prefills (32 query
+# heads over 4 and over 8 KV heads, D 128; mixtral's window 4096), and
+# qwen3's training shape (rank 0's 4 rows of TRAIN_RANKS), where the dK dV
+# kernel sums 8 query heads into each KV head
+MOE_PREFILL_SHAPES = {
+    "qwen3-prefill": (8, 32, 4, 512, 512, 128, True, 0, 0.0),
+    "mixtral-prefill": (8, 32, 8, 512, 512, 128, True, 4096, 0.0)}
+MOE_TRAIN_SHAPE = (4, 32, 4, 512, 512, 128, True, 0, 0.0)
 # |kernel - plain| <= atol + rtol * |plain|, elementwise.  Both compute in
 # fp32 and round once to the output dtype, so in bf16 they differ by at most
 # one rounding step (<= 2**-7 of the value) plus fp32 noise near zero.
@@ -239,11 +268,13 @@ BWD_CASES = dict(
         ("d128-ragged-1000", (HEAD_DIM_CASES["ragged-1000"], False)),
         ("masked-rows", ((1, 2, 2, 96, 32, 64, True, 16, 0.0), False)),
         ("gpt-1.3b-views", (TRAIN_SHAPE, True))])
-# bf16 only: the largest head dim, and vit-e's (paper_models.py: 16 heads
-# of 112, non-causal), at vit-g-d104's ragged length
+# bf16 only: the largest head dim, vit-e's (paper_models.py: 16 heads
+# of 112, non-causal), at vit-g-d104's ragged length, and qwen3's training
+# shape
 BWD_BF16_CASES = {
     "gemma-2b-d256-views": (HEAD_DIM_CASES["gemma-2b-d256"], True),
     "vit-e-d112-views": ((2, 16, 16, 257, 257, 112, False, 0, 0.0), True),
+    "qwen3-train-views": (MOE_TRAIN_SHAPE, True),
 }
 # gpt-1.3b training: two ranks on the one card, global batch 10, seq 512
 TRAIN_ARCH, TRAIN_SEQ = "gpt-1.3b", 512
@@ -274,6 +305,16 @@ SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dh0")
 # Mamba2 paper's training context), batch 32: m 7, 7, 10, 2, 2, 2, 1, 1
 MAMBA_PLAN_ARGS = ["--arch", MAMBA, "--seq", "2048", "--batch", "32",
                    "--runtime", "mpmd", "--cluster", "cluster-a"]
+# the MoE models: served at the serving phase's batch 8, prompt 512, 32
+# tokens; qwen3 at full width and depth (56.9 GiB of bf16 weights),
+# mixtral at full width cut to 24 of its 32 layers (87.0 GiB in full,
+# more than the card holds; 65.4 GiB at 24); the qwen3 consistency check
+# in fp32 at 4 layers (48 would need 122 GB); qwen3 trained at full width
+# on 2 layers on the fixed two-rank plan (TRAIN_RANKS), seq 512
+QWEN3, MIXTRAL = "qwen3-moe-30b-a3b", "mixtral-8x7b"
+MIXTRAL_SERVE_LAYERS = 24
+QWEN3_CONSISTENCY_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
 
 
 def emit(obj) -> None:
@@ -351,6 +392,13 @@ def _compare(case, dtype, views=False) -> float:
                              f" max err {err}, {over} x the tolerance "
                              f"{atol} + {rtol} |plain|")
     return err
+
+
+def _sdpa(q, k, v, causal):
+    """PyTorch's own attention on the same (B, H, S, D) inputs, GQA by
+    its ``enable_gqa``; the yardstick only, never called by the port."""
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
 
 
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -458,17 +506,43 @@ def phase_kernel() -> dict:
     kernel_ms_2 = _time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
                            20)
     bound_ms, bound_by, nbytes, flops = _bound(SERVE_SHAPE, dtype)
+    gqa = {name: _gqa_timing(name, case, errs)
+           for name, case in MOE_PREFILL_SHAPES.items()}
     res = {"phase": "kernel", "max_abs_err": errs, "sass": sass,
            "shape": SERVE_SHAPE, "dtype": "bfloat16",
            "variant": flash_ops.VARIANTS[dtype], "kernel_ms": kernel_ms,
            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-           "kernel_tflops": flops / kernel_ms / 1e9}
+           "kernel_tflops": flops / kernel_ms / 1e9, "moe_shapes": gqa}
     emit(res)
     return {"variant": flash_ops.VARIANTS[dtype], "max_abs_err": serve_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "moe_shapes": gqa}
+
+
+def _gqa_timing(name, case, errs) -> dict:
+    """The bf16 kernel at an MoE model's prefill shape: held against its
+    plain version (contiguous and as the model's views, at ``TOL``), then
+    kernel, plain version and SDPA timed beside the bound."""
+    dtype = torch.bfloat16
+    err = max(_compare(case, dtype), _compare(case, dtype, views=True))
+    errs[f"{name}-bfloat16"] = err
+    q, k, v = _qkv(case, dtype)
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    if case[7] and case[7] < case[4]:
+        raise AssertionError(f"{name}: SDPA has no window: {case}")
+    kernel_ms = _time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
+                         20)
+    plain_ms = _time_ms(lambda: attention_reference(q, k, v, **kw), 10)
+    library_ms = _time_ms(lambda: _sdpa(q, k, v, case[6]), 20)
+    bound_ms, bound_by, nbytes, flops = _bound(case, dtype)
+    return {"shape": case, "max_abs_err": err, "ms": kernel_ms,
+            "ms_repeat": _time_ms(lambda: flash_ops.flash_attention(
+                q, k, v, **kw), 20),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
 
 
 def _ssd_inputs(shape, dtype, seed=0, slow=False):
@@ -616,15 +690,25 @@ def phase_ssd_kernel() -> dict:
 
 
 def phase_serve(arch: str, batch: int, prompt: int, gen: int,
-                phase: str, expect: dict) -> dict:
-    """Serve ``arch`` at full width; ``expect`` maps each kernel's name
-    to the launches the served run must show."""
+                phase: str, expect: dict, layers: int = 0) -> dict:
+    """Serve ``arch`` at full width (its first ``layers`` layers when
+    given); ``expect`` maps each kernel's name to the launches the served
+    run must show."""
     cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    held = torch.cuda.memory_allocated()     # cuBLAS workspaces and such
+    if held > 2**30:
+        raise AssertionError(f"{phase}: {held} B still held by earlier "
+                             f"phases")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     gen_ = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     model = M.DecoderLM.init(cfg, gen_, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, prompt))
     serve(cfg, model, prompts, 2, "cuda")     # warm-up at the same shapes
@@ -656,8 +740,10 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     if not bool(torch.isfinite(res["last_logits"]).all()):
         raise AssertionError("non-finite logits")
     emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "of_layers": get_arch(arch).n_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "batch": batch,
           "prompt": prompt, "gen": gen, "init_s": init_s,
+          "init_peak_gib": init_peak / 2**30, "held_before_gib": held / 2**30,
           "params": M.param_count(model.params),
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_s": res["decode_s"],
@@ -669,12 +755,16 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     return launches
 
 
-def phase_consistency(arch: str, batch: int, seq: int) -> dict:
-    """fp32 at full width: prefill(S+1) against prefill(S) + one decode
-    step; then ``arch`` reduced, on the card against the CPU."""
+def phase_consistency(arch: str, batch: int, seq: int,
+                      layers: int = 0) -> dict:
+    """fp32 at full width (the first ``layers`` layers when given):
+    prefill(S+1) against prefill(S) + one decode step; then ``arch``
+    reduced, on the card against the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = M.DecoderLM.init(cfg, gen, "cuda")
     toks = torch.from_numpy(np.random.default_rng(1).integers(
@@ -887,6 +977,7 @@ def phase_flash_bwd() -> dict:
     fwd_bound = max(fwd_bound, fwd_bytes / HBM_BYTES_S * 1e3)
     bounds = {w: _bwd_bound(TRAIN_SHAPE, dtype, w)
               for w in ("dq", "dkdv", "both")}
+    qwen3 = _bwd_timing(MOE_TRAIN_SHAPE, errs["qwen3-train-views-bfloat16"])
     emit({"phase": "flash_bwd", "max_rel_err": errs,
           "train_shape_max_abs_err": main, "shape": TRAIN_SHAPE,
           "dtype": "bfloat16", "variant": flash_ops.VARIANTS[dtype],
@@ -901,14 +992,43 @@ def phase_flash_bwd() -> dict:
           "bounds": {w: {"ms": b[0], "by": b[1], "bytes": b[2],
                          "flops": b[3]} for w, b in bounds.items()},
           "ptxas": {k: v for k, v in PTXAS.items()
-                    if k.startswith("flash_bwd")}})
+                    if k.startswith("flash_bwd")}, "qwen3_train": qwen3})
     main_err = {"dq": main["q"], "dkdv": max(main["k"], main["v"])}
     return {w: {"variant": flash_ops.VARIANTS[dtype],
                 "max_abs_err": main_err[w],
                 "ms": by_kernel[f"flash_bwd_{w}_kernel"],
                 "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
-                "bound_ms": bounds[w][0], "bound_by": bounds[w][1]}
+                "bound_ms": bounds[w][0], "bound_by": bounds[w][1],
+               "qwen3_train": qwen3[w]}
             for w in ("dq", "dkdv")}
+
+
+def _bwd_timing(case, rel_err) -> dict:
+    """The bf16 backward kernels at ``case`` as the model's views: each
+    kernel's device ms (``torch.profiler``) beside its bound, and SDPA's
+    backward at the same shape."""
+    dtype = torch.bfloat16
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(case, dtype))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    kw = (case[6], case[7], case[8])
+    _, lse = flash_ops._forward(q, k, v, *kw, with_lse=True)
+    by_kernel = _kernel_ms_by_name(
+        lambda: flash_ops._backward(q, k, v, lse, dout, *kw), 20,
+        ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = _sdpa(qr, kr, vr, case[6])
+    sdpa_bwd = [_time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qr, kr, vr), dout, retain_graph=True), 20)
+        for _ in range(2)]
+    res = {"shape": case, "max_rel_err": rel_err,
+           "library_ms": sdpa_bwd[0], "library_ms_repeat": sdpa_bwd[1]}
+    for w in ("dq", "dkdv"):
+        bound = _bwd_bound(case, dtype, w)
+        res[w] = {"ms": by_kernel[f"flash_bwd_{w}_kernel"],
+                  "bound_ms": bound[0], "bound_by": bound[1]}
+    return res
 
 
 def _ssd_bwd_compare(name, inputs, h0=None, seed=5) -> dict:
@@ -1099,19 +1219,21 @@ def _loss_and_grads(cfg, params, batch):
 def phase_train_grads() -> dict:
     """fp32, TF32 off: reduced models' loss and grads through the kernels
     on the card against the plain versions on the CPU, same params; the
-    dense models through the flash kernels, mamba2 (P 32, N 16) through
-    the SSD kernels."""
+    dense and MoE models through the flash kernels, mamba2 (P 32, N 16)
+    through the SSD kernels.  The MoE model (mixtral, 4 experts, top-2)
+    gets tokens of 8 ids, so that routing is skewed: its capacity
+    dispatches must drop assignments, the same number on both devices."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = {}
-    for arch in ("gpt-1.3b", "bert-large", MAMBA):
+    for arch in ("gpt-1.3b", "bert-large", MAMBA, MIXTRAL):
         cfg = get_arch(arch).reduced()
         cpu_params = M.init_params(cfg, torch.Generator().manual_seed(3),
                                    "cpu", all_fp32=True)
         tree = M.tree_map(cpu_params, lambda _, t: t.numpy())
-        toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                                 (2, 129))
-        out = {}
+        toks = np.random.default_rng(3).integers(
+            0, 8 if cfg.is_moe else cfg.vocab_size, (2, 129))
+        out, drops = {}, {}
         for device in ("cpu", "cuda"):
             t = torch.from_numpy(toks).to(device)
             batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
@@ -1119,8 +1241,10 @@ def phase_train_grads() -> dict:
                                            device=device)}
             before = (flash_ops.LAUNCHES, dict(flash_ops.BWD_LAUNCHES),
                       ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES)
-            out[device] = _loss_and_grads(
-                cfg, params_from_numpy(tree, device), batch)
+            with moe.counting_drops() as dropped:
+                out[device] = _loss_and_grads(
+                    cfg, params_from_numpy(tree, device), batch)
+            drops[device] = sum(int(d) for _, d in dropped)
             torch.cuda.synchronize()
         fwd = flash_ops.LAUNCHES - before[0]
         bwd = {n: c - before[1][n] for n, c in flash_ops.BWD_LAUNCHES.items()}
@@ -1133,6 +1257,9 @@ def phase_train_grads() -> dict:
             raise AssertionError(f"{arch}: flash launches {fwd} forward, "
                                  f"{bwd} backward; SSD launches {ssd} for "
                                  f"{cfg.n_layers} checkpointed layers")
+        if cfg.is_moe and not drops["cpu"] == drops["cuda"] > 0:
+            raise AssertionError(f"{arch}: dropped assignments {drops}: "
+                                 f"the same number on both, more than 0")
         (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
         if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
             raise AssertionError(f"{arch}: loss {loss_g} on the card, "
@@ -1146,7 +1273,8 @@ def phase_train_grads() -> dict:
                                      f"1e-4 * {scale}")
             worst = max(worst, err / scale)
         res[arch] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
-                     "grad_max_rel_err": worst, "leaves": len(grads_c)}
+                     "grad_max_rel_err": worst, "leaves": len(grads_c),
+                     "dropped_assignments": drops["cuda"]}
     emit({"phase": "train_grads", "dtype": "float32", **res})
     return res
 
@@ -1201,18 +1329,23 @@ def _check_train_launches(phase: str, n: int) -> dict:
     return launches
 
 
-def _train_plan() -> Plan:
+def _train_plan(model: str) -> Plan:
     ranks = [RankPlan(i, dev, m=m, ell=ell, state_ratio=r)
              for i, (dev, m, ell, r) in enumerate(TRAIN_RANKS)]
-    return Plan(model=TRAIN_ARCH, cluster="loopback-1-gpu",
+    return Plan(model=model, cluster="loopback-1-gpu",
                 global_batch=sum(r.b for r in ranks), ranks=ranks)
 
 
-def phase_train() -> dict:
-    """gpt-1.3b at full width and depth through the loopback MPMD engine;
-    returns the flash launches of the timed steps."""
-    cfg = get_arch(TRAIN_ARCH)
-    plan = _train_plan()
+def phase_train(arch: str = TRAIN_ARCH, layers: int = 0,
+                phase: str = "train") -> dict:
+    """``arch`` at full width (its first ``layers`` layers when given,
+    else full depth) through the loopback MPMD engine on the fixed
+    two-rank plan (TRAIN_RANKS); returns the flash launches of the timed
+    steps."""
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    plan = _train_plan(cfg.name)
     engine = build_train_step(cfg, plan, substrate="loopback",
                               schedule="layered", seq_len=TRAIN_SEQ)
     t0 = time.perf_counter()
@@ -1245,11 +1378,12 @@ def phase_train() -> dict:
     if not all(np.isfinite(losses + [warm_loss])):
         raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
     launches = _check_train_launches(
-        "train", TRAIN_STEPS * _rank_calls(engine.schedule, plan) *
+        phase, TRAIN_STEPS * _rank_calls(engine.schedule, plan) *
         cfg.n_layers)
     mean_ms = float(np.mean(step_ms))
     samples_s = plan.global_batch / (mean_ms / 1e3)
-    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "of_layers": get_arch(arch).n_layers,
           "d_model": cfg.d_model, "params": sum(
               g.layout.size * g.count for g in engine.trainer.groups),
           "seq": TRAIN_SEQ, "global_batch": plan.global_batch,
@@ -1266,7 +1400,7 @@ def phase_train() -> dict:
           "memory": engine.memory_report(state).splitlines()})
     del engine, state
     torch.cuda.empty_cache()
-    return {k: v for k, v in launches.items() if k != "flash_attention"}
+    return launches
 
 
 def _held_out_errors(samples) -> dict:
@@ -1534,6 +1668,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     flash = phase_kernel()
@@ -1545,15 +1680,27 @@ def main() -> int:
     ssd_launches = phase_serve(
         MAMBA, MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, "serve_mamba2",
         {"flash_attention": 0, "ssd_scan": get_arch(MAMBA).n_layers})
+    moe_launches = {
+        "serve_qwen3_moe": phase_serve(
+            QWEN3, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_qwen3_moe",
+            {"flash_attention": get_arch(QWEN3).n_layers, "ssd_scan": 0}),
+        "serve_mixtral": phase_serve(
+            MIXTRAL, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_mixtral",
+            {"flash_attention": MIXTRAL_SERVE_LAYERS, "ssd_scan": 0},
+            layers=MIXTRAL_SERVE_LAYERS)}
     phase_consistency("llama-7b", 2, 256)
     phase_consistency(MAMBA, 2, 1024)
+    phase_consistency(QWEN3, 2, 256, layers=QWEN3_CONSISTENCY_LAYERS)
     bwd = phase_flash_bwd()
     ssd_bwd = phase_ssd_bwd()
     phase_train_grads()
     bwd_launches = phase_train()
+    moe_launches["train_moe"] = phase_train(QWEN3, MOE_TRAIN_LAYERS,
+                                            "train_moe")
     phase_profile()
     plan_launches = phase_plan_train()
     mamba_launches = phase_plan_train_mamba2()
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1562,6 +1709,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
          "launches": flash_launches["flash_attention"],
          "launches_planned_step": plan_launches["flash_attention"],
+         "launches_moe": {k: v["flash_attention"]
+                          for k, v in moe_launches.items()},
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1571,6 +1720,7 @@ def main() -> int:
                "src/repro/kernels/flash_attention/flash_attention.py:93",
            "launches": bwd_launches[f"flash_bwd_{w}"],
            "launches_planned_step": plan_launches[f"flash_bwd_{w}"],
+           "launches_train_moe": moe_launches["train_moe"][f"flash_bwd_{w}"],
            **bwd[w]}
           for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",

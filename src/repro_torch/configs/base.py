@@ -208,4 +208,5 @@ def _ensure_loaded() -> None:
     _LOADED = True
     # import every config module the port has once so registrations run
     from repro_torch.configs import (gemma_2b, mamba2_370m,  # noqa: F401
-                                     paper_models, stablelm_1_6b)
+                                     mixtral_8x7b, paper_models,
+                                     qwen3_moe_30b_a3b, stablelm_1_6b)

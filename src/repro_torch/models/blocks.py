@@ -1,4 +1,4 @@
-"""Per-layer blocks: the dense transformer block and the Mamba2 block.
+"""Per-layer blocks: the dense/MoE transformer block and the Mamba2 block.
 
 A *block* is the unit the layer stack loops over.  Each block kind has an
 ``init`` and an ``apply`` that works in three modes:
@@ -6,8 +6,6 @@ A *block* is the unit the layer stack loops over.  Each block kind has an
 * ``train``   — full sequence, no cache;
 * ``prefill`` — full sequence, returns fresh KV / SSM state for the cache;
 * ``decode``  — one token against an existing cache.
-
-MoE blocks are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,16 +20,12 @@ from repro_torch.models.layers.attention import (AttnSpec, attention_apply,
                                                  decode_attend,
                                                  merge_decode_partials)
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
+from repro_torch.models.layers.moe import moe_apply, moe_init
 from repro_torch.models.layers.norms import (layernorm_apply, layernorm_init,
                                              rmsnorm_apply, rmsnorm_init)
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.layers.ssd import (SSMSpec, ssd_apply,
                                            ssd_decode_step, ssd_init)
-
-
-def _no_moe(cfg: ArchConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE: later slice")
 
 
 def norm_init(cfg: ArchConfig, d: int,
@@ -72,37 +66,51 @@ def ssm_spec(cfg: ArchConfig) -> SSMSpec:
 
 
 # ---------------------------------------------------------------------------
-# Dense transformer block
+# Dense / MoE transformer block
 # ---------------------------------------------------------------------------
 
 def dense_block_init(generator: torch.Generator, cfg: ArchConfig,
                      local: bool = False,
                      device: torch.device | str = "cuda") -> dict:
-    _no_moe(cfg)
     p = {
         "ln_attn": norm_init(cfg, cfg.d_model, device),
         "attn": attention_init(generator, cfg.d_model, attn_spec(cfg, local),
                                device),
         "ln_mlp": norm_init(cfg, cfg.d_model, device),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                        device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.d_ff,
+                            cfg.n_experts, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                            device)
     if cfg.post_norm:
         p["ln_attn_post"] = norm_init(cfg, cfg.d_model, device)
         p["ln_mlp_post"] = norm_init(cfg, cfg.d_model, device)
     return p
 
 
+def _ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
+         dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.is_moe:
+        return moe_apply(params["moe"], x, top_k=cfg.experts_per_token,
+                         dropless=dropless)
+    return (mlp_apply(params["mlp"], x, cfg.mlp_kind),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def dense_block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                       positions: torch.Tensor, *, local: bool = False,
                       kv_cache: Optional[Tuple] = None,
-                      return_kv: bool = False):
-    """Returns (y, new_kv_or_None).
+                      return_kv: bool = False,
+                      dropless: bool = False):
+    """Returns (y, aux_loss, new_kv_or_None).
 
     ``kv_cache = (k, v, kv_positions)`` → decode mode (x is one token at
     ``positions`` (B,)).  Otherwise ``positions`` is (B, S).
+    ``dropless`` — MoE dispatch with no capacity dropping (the serving
+    paths pass True so decode matches a drop-free full forward).
     """
-    _no_moe(cfg)
     spec = attn_spec(cfg, local)
     h = norm_apply(cfg, params["ln_attn"], x)
     new_kv = None
@@ -129,10 +137,10 @@ def dense_block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
         attn_out = norm_apply(cfg, params["ln_attn_post"], attn_out)
     x = x + attn_out
     h = norm_apply(cfg, params["ln_mlp"], x)
-    ffn_out = mlp_apply(params["mlp"], h, cfg.mlp_kind)
+    ffn_out, aux = _ffn(params, h, cfg, dropless=dropless)
     if cfg.post_norm:
         ffn_out = norm_apply(cfg, params["ln_mlp_post"], ffn_out)
-    return x + ffn_out, new_kv
+    return x + ffn_out, aux, new_kv
 
 
 def decode_project_kv(params: dict, x: torch.Tensor, cfg: ArchConfig,

@@ -1,11 +1,16 @@
 """Multi-head attention with GQA/MQA, sliding windows, and logit softcaps.
 
-Two compute paths, numerically interchangeable:
+Three compute paths, numerically interchangeable:
 
-* ``dense``  — naive O(S^2) scores; the oracle;
-* kernel     — :mod:`repro_torch.kernels.flash_attention` for self-attention
-               over a fresh sequence (train/prefill).  On CPU tensors it
-               runs its plain PyTorch version, on CUDA tensors the kernel.
+* ``dense``      — naive O(S^2) scores; the oracle;
+* ``blockwise``  — online-softmax loop over KV blocks in plain PyTorch;
+                   bounds the logits' memory on long CPU sequences;
+* kernel         — :mod:`repro_torch.kernels.flash_attention` for
+                   self-attention over a fresh sequence (train/prefill).
+                   On CUDA tensors it launches the kernel (which tiles
+                   itself); on CPU tensors up to ``BLOCKWISE_THRESHOLD``
+                   tokens it runs its plain PyTorch version, past it
+                   ``blockwise``.
 
 Decode (:func:`decode_attend`) is plain PyTorch, as in the JAX package.
 
@@ -25,6 +30,9 @@ from repro_torch.models.layers.init_utils import dense_init
 from repro_torch.models.layers.rope import apply_rope
 
 _NEG_INF = -1e30
+#: Past this many query or key tokens, CPU self-attention goes blockwise
+#: (the JAX package's ``blockwise_threshold``).
+BLOCKWISE_THRESHOLD = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +117,64 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, hd)
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        spec: AttnSpec,
+                        q_positions: torch.Tensor,
+                        kv_positions: torch.Tensor,
+                        block_kv: int = 1024,
+                        block_q: int = 4096) -> torch.Tensor:
+    """Online-softmax loop over KV blocks, outer-blocked over Q, in fp32;
+    the logits held at once are O(block_q * block_kv).  KV is padded to
+    the block with position -1 (masked).  Shapes as
+    :func:`dense_attention`."""
+    b, sq, h, hd = q.shape
+    if sq > block_q and sq % block_q == 0:
+        return torch.cat([
+            blockwise_attention(qi, k, v, spec, pi, kv_positions, block_kv,
+                                block_q)
+            for qi, pi in zip(q.split(block_q, 1),
+                              q_positions.split(block_q, 1))], dim=1)
+    sk = k.shape[1]
+    if sk % block_kv != 0:
+        pad = block_kv - sk % block_kv
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-1)
+        sk += pad
+    kvh = k.shape[2]
+    g = spec.q_per_kv
+    qg = _group_q(q, g).float()                  # (B, Sq, KV, G, hd)
+    qp = q_positions[:, None, None, :, None]
+    acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, kvh, g, sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    for lo in range(0, sk, block_kv):
+        kb = k[:, lo:lo + block_kv].float()
+        vb = v[:, lo:lo + block_kv].float()
+        kp = kv_positions[:, None, None, None, lo:lo + block_kv]
+        logits = torch.einsum("bqcgd,bkcd->bcgqk", qg, kb) * spec.scale
+        logits = _softcap(logits, spec.softcap)
+        mask = kp >= 0
+        if spec.causal:
+            mask = mask & (kp <= qp)
+        if spec.window > 0:
+            mask = mask & (qp - kp < spec.window)
+        logits = torch.where(mask, logits,
+                             torch.full_like(logits, _NEG_INF))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bcgqk,bkcd->bcgqd",
+                                                    p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]    # (B, KV, G, Sq, hd)
+    return out.reshape(b, h, sq, hd).transpose(1, 2).to(q.dtype)
+
+
 def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
                   cache_v: torch.Tensor, cache_positions: torch.Tensor,
                   q_positions: torch.Tensor, spec: AttnSpec,
@@ -151,9 +217,11 @@ def merge_decode_partials(wv: torch.Tensor, m: torch.Tensor,
 def attention_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
                     positions: torch.Tensor, return_kv: bool = False):
     """Self-attention over ``x`` (B, S, D) through the flash attention
-    kernel, which assumes contiguous 0..S-1 positions (train/prefill).
-    ``return_kv`` also returns the fresh (k, v) for cache fills.  (The JAX
-    package's ``kv_override`` cross-cache mode has no caller here yet.)
+    kernel, which assumes contiguous 0..S-1 positions (train/prefill); on
+    the CPU past ``BLOCKWISE_THRESHOLD`` tokens through
+    :func:`blockwise_attention`.  ``return_kv`` also returns the fresh
+    (k, v) for cache fills.  (The JAX package's ``kv_override``
+    cross-cache mode has no caller here yet.)
     """
     dtype = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
@@ -162,11 +230,14 @@ def attention_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
     if spec.use_rope:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
-    # kernel layout (B, H, S, D): transposed views, read through strides
-    out = flash_ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=spec.causal, window=spec.window,
-        softcap=spec.softcap).transpose(1, 2)
+    if x.device.type == "cpu" and x.shape[1] > BLOCKWISE_THRESHOLD:
+        out = blockwise_attention(q, k, v, spec, positions, positions)
+    else:
+        # kernel layout (B, H, S, D): transposed views, read through strides
+        out = flash_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=spec.causal, window=spec.window,
+            softcap=spec.softcap).transpose(1, 2)
     y = torch.einsum("bshk,hkd->bsd", out.to(dtype), params["wo"].to(dtype))
     if return_kv:
         return y, (k, v)

@@ -1,4 +1,5 @@
-"""The model's spine: config-driven decoder stacks (dense and SSM stages).
+"""The model's spine: config-driven decoder stacks (dense, MoE and SSM
+stages).
 
 An architecture compiles to a list of :class:`StageSpec`s — homogeneous
 groups of blocks whose parameters are stacked on a leading layer
@@ -10,7 +11,7 @@ Public API (plain functions over a params dict, plus :class:`DecoderLM`,
 the ``nn.Module`` that holds the parameters):
 
 * :func:`init_params`
-* :func:`loss_fn`       — training loss (chunked CE), dense and SSM stages
+* :func:`loss_fn`       — training loss (chunked CE + router aux)
 * :func:`forward_hidden` — activations for training
 * :func:`init_cache`
 * :func:`prefill`       — build KV / SSM caches, return last logits
@@ -152,6 +153,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                     dtype=storage_dtype(p, dtype), device=device))
             dst = layer(stacked, i)
             tree_map(elem, lambda p, t, _d=dst: _get(_d, p).copy_(t))
+            del elem    # before the next layer's draws
         stages.append(stacked)
     params["stages"] = stages
     return params
@@ -227,16 +229,17 @@ def element_apply(cfg: ArchConfig, spec: StageSpec, bp: Any, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply ONE stage element (= one Cephalo FSDP unit) to ``x``.
-    Returns (y, aux); aux, the MoE router loss, is 0 for dense and SSM
-    blocks."""
+    Returns (y, aux); aux, the MoE router loss, is 0 for dense-MLP and SSM
+    blocks.  MoE layers take the capacity dispatch of training."""
     if spec.kind == "ssm":
         y, _ = B.ssm_block_apply(bp, x, cfg)
-    elif spec.kind == "dense":
-        y, _ = B.dense_block_apply(bp, x, cfg, positions, local=spec.local)
-    else:
-        raise NotImplementedError(f"training through {spec.kind!r} stages: "
-                                  "later slice")
-    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind == "dense":
+        y, a, _ = B.dense_block_apply(bp, x, cfg, positions,
+                                      local=spec.local)
+        return y, a
+    raise NotImplementedError(f"training through {spec.kind!r} stages: "
+                              "later slice")
 
 
 def _stage_apply_train(cfg: ArchConfig, spec: StageSpec, stage: Any,
@@ -264,7 +267,7 @@ def forward_hidden(cfg: ArchConfig, params: Dict[str, Any],
                    frontend_embed: torch.Tensor | None = None,
                    remat: str = "full"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden, aux_loss)."""
+    """Full-sequence training forward.  Returns (hidden, aux_loss)."""
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
@@ -358,7 +361,8 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     """Run the full prompt (B, S), build caches.  Returns (last-token
     logits (B, 1, V) fp32, caches).  On CUDA tensors, attention goes
     through the flash attention kernel and the SSM scan through the SSD
-    scan kernel."""
+    scan kernel.  MoE layers take the drop-free dispatch, here and in
+    :func:`decode_step`."""
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
@@ -373,8 +377,9 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             continue
         window = B.attn_spec(cfg, spec.local).window
         for i in range(spec.count):
-            x, kv = B.dense_block_apply(layer(sp, i), x, cfg, positions,
-                                        local=spec.local, return_kv=True)
+            x, _, kv = B.dense_block_apply(layer(sp, i), x, cfg, positions,
+                                           local=spec.local, return_kv=True,
+                                           dropless=True)
             KV.fill_kv_from_prefill(layer(cache, i), kv[0], kv[1],
                                     positions, window=window)
     logits = head_logits(cfg, params, x[:, -1:])
@@ -407,9 +412,9 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
                                                local=spec.local)
             KV.write_kv(c["k"], c["v"], c["pos"], k_new, v_new, positions,
                         cache_total=total)
-            x, _ = B.dense_block_apply(bp, x, cfg, positions,
-                                       local=spec.local,
-                                       kv_cache=(c["k"], c["v"], c["pos"]))
+            x, _, _ = B.dense_block_apply(
+                bp, x, cfg, positions, local=spec.local,
+                kv_cache=(c["k"], c["v"], c["pos"]), dropless=True)
     logits = head_logits(cfg, params, x)
     return logits, caches
 
@@ -442,7 +447,7 @@ class _ParamTree(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """A decoder's parameters (dense or Mamba2) and its serving entry
+    """A decoder's parameters (dense, MoE or Mamba2) and its serving entry
     points.
 
     The parameters keep the JAX package's tree (``embed``, ``final_norm``,

@@ -37,6 +37,8 @@ from repro_torch.core.partition import Plan, RankPlan
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.models import model as M
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 RANKS = [("A", 2, 2, 0.5), ("B", 1, 1, 0.3), ("C", 3, 1, 0.2)]
 SEQ = 16
 

@@ -49,6 +49,8 @@ from repro_torch.core.partition import Plan, RankPlan
 from repro_torch.data import pipeline
 from repro_torch.optim.adam import AdamConfig
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 SCHEDULES = ("layered", "per_microbatch", "interleaved")
 #: the parity-matrix plan: uneven m/ell and ratios
 RANKS = [("A", 2, 2, 0.6), ("B", 1, 1, 0.4)]
@@ -273,13 +275,15 @@ def test_mamba2_layout_matches_reference(reduced, ratios):
                 sub.slice_flats(flats)[r][name].numpy(), js[name])
 
 
-def test_mamba2_engine_matches_reference_loopback():
-    """Two loopback steps of reduced mamba2-370m on the parity-matrix plan,
-    from the same params: losses within 1e-5, exported ``m`` and ``v``
-    within 1e-4 of their max, collective counts equal."""
+def _two_loopback_steps(arch, skew=False):
+    """Two loopback steps of reduced ``arch`` on the parity-matrix plan,
+    from the same params, port against reference: losses within 1e-5,
+    exported ``m`` and ``v`` within 1e-4 of their max, collective counts
+    equal.  ``skew`` maps the tokens onto 8 ids, so that MoE routing is
+    skewed and each rank's capacity dispatch drops."""
     plan, jplan = _plans()
-    jcfg = jax_arch("mamba2-370m").reduced()
-    cfg = get_arch("mamba2-370m").reduced()
+    jcfg = jax_arch(arch).reduced()
+    cfg = get_arch(arch).reduced()
     init = jax.device_get(JM.init_params(jcfg, jax.random.PRNGKey(0)))
     stream = pipeline.SyntheticStream(pipeline.DataConfig(
         cfg.vocab_size, SEQ, seed=2))
@@ -293,6 +297,8 @@ def test_mamba2_engine_matches_reference_loopback():
                               "p": params_from_numpy(init, "cpu")})
     for step in range(2):
         big = stream.sample(step, plan.global_batch)
+        if skew:
+            big = big % 8
         jstate, jloss = jeng.step(jstate, big)
         state, loss = eng.step(state, big)
         assert abs(loss - jloss) <= 1e-5, (step, loss, jloss)
@@ -303,3 +309,58 @@ def test_mamba2_engine_matches_reference_loopback():
             err = max(np.abs(g - w).max() for g, w in zip(got[k], want[k]))
             assert err <= 1e-4 * scale, (step, k, err, scale)
     assert eng.trainer.substrate.stats == jeng.trainer.substrate.stats
+
+
+def test_mamba2_engine_matches_reference_loopback():
+    """Two loopback steps of reduced mamba2-370m on the parity-matrix plan,
+    from the same params: losses within 1e-5, exported ``m`` and ``v``
+    within 1e-4 of their max, collective counts equal."""
+    _two_loopback_steps("mamba2-370m")
+
+
+MOE_ARCHS = ["mixtral-8x7b", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_matches_reference_loopback(arch):
+    """Two loopback steps of a reduced MoE model on the parity-matrix
+    plan, tokens skewed so that routing overflows: each rank's
+    microbatch (m x seq tokens) is its own capacity dispatch, as in the
+    reference's ``HeteroTrainer``, so ranks of uneven m drop differently
+    and the step must still equal the reference's.  The port's dispatches
+    are recorded: both ranks' token counts occur, and some drop."""
+    from repro_torch.models.layers import moe
+    with moe.counting_drops() as seen:
+        _two_loopback_steps(arch, skew=True)
+    assert len({t for t, _ in seen}) == 2     # the ranks' uneven calls
+    assert sum(int(d) for _, d in seen) > 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_layout_matches_reference(arch):
+    """An MoE model's uneven FSDP layout (units, the reference's sorted
+    leaf order with ``moe`` in each layer, shapes, shard sizes) at full
+    width and reduced; reduced, the flat buffers and each rank's slice
+    element by element."""
+    ratios = [0.6, 0.4]
+    for jcfg, cfg in ((jax_arch(arch), get_arch(arch)),
+                      (jax_arch(arch).reduced(), get_arch(arch).reduced())):
+        jplanner = JaxPlanner(jcfg, ratios)
+        planner = UnitPlanner(cfg, ratios)
+        assert [g.name for g in planner.groups] == \
+            [g.name for g in jplanner.groups]
+        for g, jg in zip(planner.groups, jplanner.groups):
+            assert (g.count, g.layout.shapes, g.layout.size,
+                    g.layout.padded, g.layout.shard_sizes) == \
+                (jg.count, jg.layout.shapes, jg.layout.size,
+                 jg.layout.padded, jg.layout.shard_sizes)
+    tree = _filled(jcfg, seed=8)
+    jsub, sub = JaxSubstrate(jplanner), LoopbackSubstrate(planner, "cpu")
+    flats = sub.flatten_tree(params_from_numpy(tree, "cpu"))
+    jflats = jsub.flatten_tree(tree)
+    for name in jflats:
+        np.testing.assert_array_equal(flats[name].numpy(), jflats[name])
+    for r, js in enumerate(jsub.slice_flats(jflats)):
+        for name in js:
+            np.testing.assert_array_equal(
+                sub.slice_flats(flats)[r][name].numpy(), js[name])

@@ -16,6 +16,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 # the cases of tests/test_kernels.py::FLASH_CASES
 FLASH_CASES = [
     # b, h, kvh, sq, sk, d, causal, window, softcap

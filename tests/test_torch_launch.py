@@ -47,6 +47,8 @@ from repro_torch.launch import train as launch
 from repro_torch.models import model as M
 from repro_torch.optim.adam import AdamConfig
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 ARGV = ["--arch", "tiny-llama", "--reduced", "--steps", "3", "--batch",
         "12", "--seq", "32", "--cluster", "mini"]
 

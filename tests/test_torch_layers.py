@@ -24,6 +24,8 @@ from repro_torch.models.layers import mlp as PMLP
 from repro_torch.models.layers import norms as PN
 from repro_torch.models.layers import rope as PR
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 RTOL = 1e-5
 
 
@@ -253,3 +255,92 @@ def test_norm_apply_uses_cfg_eps(arch):
                         jnp.asarray(x))
     got = PB.norm_apply(pcfg, {k: _t(v) for k, v in params.items()}, _t(x))
     _close(got, ref)
+
+
+# (window, softcap, causal): the cases of tests/test_layers.py's blockwise
+# property (windowed non-causal is not a supported combination)
+BLOCKWISE_CASES = [(w, c, causal) for w in (0, 8, 32) for c in (0.0, 25.0)
+                   for causal in (True, False) if causal or not w]
+
+
+@pytest.mark.parametrize("window,softcap,causal", BLOCKWISE_CASES)
+def test_blockwise_attention_matches(window, softcap, causal):
+    """The port's blockwise attention (KV blocks of 16, Q blocks of 32 at
+    S 64, GQA 4/2) against the JAX package's blockwise and dense paths."""
+    rng = _rng(10)
+    b, s, h, kv, hd = 2, 64, 4, 2, 16
+    js, ps = _specs(h, kv, hd, causal, window, softcap)
+    q, k, v = _f32(rng, b, s, h, hd), _f32(rng, b, s, kv, hd), \
+        _f32(rng, b, s, kv, hd)
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    got = PA.blockwise_attention(_t(q), _t(k), _t(v), ps, _t(pos), _t(pos),
+                                 block_kv=16, block_q=32)
+    _close(got, JA.blockwise_attention(*jargs, js, jnp.asarray(pos),
+                                       jnp.asarray(pos), block_kv=16,
+                                       block_q=32))
+    _close(got, JA.dense_attention(*jargs, js, jnp.asarray(pos),
+                                   jnp.asarray(pos)))
+
+
+def test_blockwise_ragged_kv_and_empty_slots():
+    """Sk 45 padded to the block of 16 with position -1, cache slots
+    already at -1, Sq != Sk: against both JAX paths."""
+    rng = _rng(11)
+    js, ps = _specs(4, 1, 32, True, 0, 0.0)
+    q, k, v = _f32(rng, 2, 9, 4, 32), _f32(rng, 2, 45, 1, 32), \
+        _f32(rng, 2, 45, 1, 32)
+    qpos = np.tile(np.arange(36, 45, dtype=np.int32), (2, 1))
+    kpos = np.tile(np.arange(45, dtype=np.int32), (2, 1))
+    kpos[1, 30:] = -1
+    got = PA.blockwise_attention(_t(q), _t(k), _t(v), ps, _t(qpos),
+                                 _t(kpos), block_kv=16)
+    jargs = [jnp.asarray(a) for a in (q, k, v, qpos, kpos)]
+    _close(got, JA.blockwise_attention(*jargs[:3], js, *jargs[3:],
+                                       block_kv=16))
+    _close(got, JA.dense_attention(*jargs[:3], js, *jargs[3:]))
+
+
+def test_blockwise_rows_are_convex_combinations():
+    """All-ones V gives all-ones rows (``tests/test_layers.py``'s check of
+    the online softmax's normalisation), at KV blocks of 8; and the same
+    rows as the JAX blockwise on a random V."""
+    rng = _rng(12)
+    js, ps = _specs(2, 2, 8, True, 0, 0.0)
+    q, k = _f32(rng, 1, 32, 2, 8), _f32(rng, 1, 32, 2, 8)
+    pos = np.arange(32, dtype=np.int32)[None]
+    out = PA.blockwise_attention(_t(q), _t(k), torch.ones(1, 32, 2, 8), ps,
+                                 _t(pos), _t(pos), block_kv=8)
+    np.testing.assert_allclose(out.numpy(), 1.0, rtol=1e-6)
+    v = _f32(rng, 1, 32, 2, 8)
+    got = PA.blockwise_attention(_t(q), _t(k), _t(v), ps, _t(pos), _t(pos),
+                                 block_kv=8)
+    _close(got, JA.blockwise_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), js, jnp.asarray(pos),
+        jnp.asarray(pos), block_kv=8))
+
+
+def test_attention_apply_past_threshold_is_blockwise(monkeypatch):
+    """One sequence of 2100 tokens (past the 2048 threshold) through the
+    port's attention layer on the CPU, against the JAX layer (which is
+    blockwise there too); the port must not build the full logits through
+    the flash kernel's plain version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    def refuse(*a, **kw):
+        raise AssertionError("flash path taken past the threshold")
+    monkeypatch.setattr(flash_ops, "flash_attention", refuse)
+    rng = _rng(13)
+    b, s, d, h, kv, hd = 1, 2100, 32, 4, 2, 16
+    js, ps = _specs(h, kv, hd, True, 0, 0.0)
+    params = {"wq": _f32(rng, d, h, hd, scale=d ** -0.5),
+              "wk": _f32(rng, d, kv, hd, scale=d ** -0.5),
+              "wv": _f32(rng, d, kv, hd, scale=d ** -0.5),
+              "wo": _f32(rng, h, hd, d, scale=(h * hd) ** -0.5)}
+    x = _f32(rng, b, s, d)
+    pos = np.arange(s, dtype=np.int32)[None]
+    jy = JA.attention_apply({k: jnp.asarray(a) for k, a in params.items()},
+                            jnp.asarray(x), js, jnp.asarray(pos))
+    py = PA.attention_apply({k: _t(a) for k, a in params.items()}, _t(x),
+                            ps, _t(pos))
+    _close(py, jy)

@@ -32,6 +32,8 @@ from repro_torch.core import device_specs as D
 from repro_torch.core import model_stats as S
 from repro_torch.core import planner as P
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 ARCHS = list(list_archs())
 SEQS = (64, 512)
 MS = (1, 2, 4, 8, 16)

@@ -37,6 +37,8 @@ from repro_torch.core import profiler as PR
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import model as M
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 FIT_CASES = {
     # tests/test_profiler_fit.py:24-34: known linear latency data
     "linear": [(m, 2e-4 + 5e-4 * m) for m in (1, 2, 3, 4, 6, 8, 12, 16)],

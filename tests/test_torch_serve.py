@@ -26,8 +26,11 @@ from repro.configs import base as jax_base
 from repro.models import model as JM
 from repro_torch.configs import base as pt_base
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.fsdp import tree_flatten
 from repro_torch.launch import serve as pt_serve
 from repro_torch.models import model as PM
+
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -39,6 +42,8 @@ SERVE_CASES = [
     ("llama-7b", {"n_kv_heads": 2}, 16),         # GQA
     ("llama-7b", {"attn_kind": "sliding", "window": 8}, 16),  # ring buffer
     ("mamba2-370m", {}, 40),                     # SSM; ragged vs chunk 32
+    ("mixtral-8x7b", {}, 16),                    # MoE 4/2 (reduced), SWA
+    ("qwen3-moe-30b-a3b", {}, 16),               # MoE 4/2 (reduced), GQA
 ]
 SERVE_IDS = [f"{a}-{'-'.join(o) or 'base'}" for a, o, _ in SERVE_CASES]
 BATCH, STEPS = 2, 4
@@ -191,15 +196,20 @@ def test_embed_and_head_match(arch):
 
 
 def test_reduced_configs_identical():
-    """The port's config copy reduces exactly as the JAX package's."""
+    """The port's config copies equal the JAX package's, at full size and
+    reduced."""
     for name in ("llama-7b", "gemma-2b", "gpt-1.3b", "stablelm-1.6b",
-                 "tiny-llama", "bert-large", "mamba2-370m"):
-        j = dataclasses.asdict(jax_base.get_arch(name).reduced())
-        p = dataclasses.asdict(pt_base.get_arch(name).reduced())
-        for d in (j, p):
-            d["arch_type"] = d["arch_type"].value
-            d["attn_kind"] = d["attn_kind"].value
-        assert j == p, name
+                 "tiny-llama", "bert-large", "mamba2-370m", "mixtral-8x7b",
+                 "qwen3-moe-30b-a3b"):
+        for size in ("full", "reduced"):
+            jc, pc = jax_base.get_arch(name), pt_base.get_arch(name)
+            if size == "reduced":
+                jc, pc = jc.reduced(), pc.reduced()
+            j, p = dataclasses.asdict(jc), dataclasses.asdict(pc)
+            for d in (j, p):
+                d["arch_type"] = d["arch_type"].value
+                d["attn_kind"] = d["attn_kind"].value
+            assert j == p, (name, size)
 
 
 def test_model_holds_bf16_weights_fp32_norms():
@@ -269,6 +279,66 @@ def test_full_width_mamba2_tree():
     assert params["stages"][0]["ssd"]["out_proj"].shape == (48, 2048, 1024)
     assert params["stages"][0]["ssd"]["conv_w"].shape == (48, 4, 2304)
     assert PM.param_count(params) == 419_825_152
+
+
+@pytest.mark.parametrize("arch,count,layers", [
+    ("qwen3-moe-30b-a3b", 30_532_110_336, 48),
+    ("mixtral-8x7b", 46_702_792_704, 32)])
+def test_full_width_moe_tree(arch, count, layers):
+    """The MoE models at full width keep the JAX tree (``moe`` in place
+    of ``mlp``, experts stacked (L, E, ...)) and its parameter count
+    (meta device: shapes only); bf16 storage but for the norms."""
+    cfg = pt_base.get_arch(arch)
+    params = PM.init_params(cfg, None, "meta")
+    assert [(s.kind, s.count) for s in PM.build_stages(cfg)] == \
+        [("dense", layers)]
+    stage = params["stages"][0]
+    assert "mlp" not in stage
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    assert {k: tuple(t.shape) for k, t in stage["moe"].items()} == {
+        "router": (layers, d, e), "w_gate": (layers, e, d, f),
+        "w_up": (layers, e, d, f), "w_down": (layers, e, f, d)}
+    assert stage["moe"]["w_up"].dtype == torch.bfloat16
+    assert stage["ln_mlp"]["scale"].dtype == torch.float32
+    assert PM.param_count(params) == count
+    jcfg, pcfg = _cfgs(arch, {})
+    jshapes = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    small, _ = tree_flatten(PM.init_params(pcfg, None, "meta"))
+    assert [tuple(t.shape) for t in small] == \
+        [x.shape for x in jax.tree.leaves(jshapes)]
+
+
+def test_sliding_window_ring_buffer_wraparound():
+    """``tests/test_elastic_and_cache.py``'s wrap check on the port, held
+    against the JAX package: reduced mixtral (window 128), a prefill of
+    64 tokens, then decode to 200, past the ring's wrap at 128.  At
+    positions 64, 130, 160 and 199 the port's decode logits must match
+    the JAX package's full drop-free forward over the prefix within 1e-4
+    of max|logits| (fp32; the reference's own test allows 2e-3)."""
+    jcfg, pcfg = _cfgs("mixtral-8x7b", {})
+    assert pcfg.window == 128
+    tree = _perturbed_params(jcfg, seed=5)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_numpy(tree, "cpu")
+    total, prefix = 200, 64
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size,
+                                             (1, total)).astype(np.int32)
+    ptoks = torch.from_numpy(toks).long()
+    with torch.inference_mode():
+        _, caches = PM.prefill(pcfg, params, ptoks[:, :prefix], total)
+        assert caches[0]["k"].shape[-3] == 128        # the ring buffer
+        for pos in range(prefix, total):
+            logits, caches = PM.decode_step(pcfg, params, caches,
+                                            ptoks[:, pos:pos + 1],
+                                            torch.full((1,), pos))
+            if pos in (prefix, 130, 160, total - 1):
+                h, _ = JM.forward_hidden(jcfg, jparams,
+                                         jnp.asarray(toks[:, :pos + 1]),
+                                         remat="none", dropless=True)
+                ref = JM.head_logits(jcfg, jparams, h[:, -1:])
+                _close(logits, ref, float(jnp.abs(ref).max()), 1e-4,
+                       f"decode at {pos}")
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,8 @@ from repro_torch.configs import base as pt_base
 from repro_torch.models import blocks as PB
 from repro_torch.models.layers import ssd as PS
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 SPEC = dict(d_model=64, d_inner=128, n_state=16, head_dim=32, chunk=16,
             conv_width=4)
 SEQ = 40                     # ragged against the chunk of 16

@@ -20,6 +20,8 @@ from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.ref import (ssd_scan_backward_reference,
                                               ssd_scan_reference)
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 # the cases of tests/test_kernels.py::SSD_CASES
 SSD_CASES = [
     # b, h, l, p, n, chunk (the JAX kernel's tile; the port's is fixed)

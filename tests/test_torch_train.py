@@ -6,7 +6,9 @@ tokens and weights.  Tolerances: the loss within 1e-5 relative, each grad
 leaf within 1e-4 of its max|grad| (fp32 sums in another order).  Also
 Adam element by element against ``repro.optim.adam`` over 3 steps.
 mamba2-370m's training state: fp32, its leaves carried from the JAX
-package leaf for leaf.
+package leaf for leaf.  For the MoE models the reference's capacity
+dispatch drops tokens on these batches (asserted), so the loss and grads
+show the same drops.
 """
 
 import jax
@@ -25,15 +27,24 @@ from repro_torch.core.hetero_trainer import trainable
 from repro_torch.models import model as M
 from repro_torch.optim import adam as tadam
 
+import torch_threads  # noqa: F401,E402  (caps torch's threads)
+
 #: tiny-llama: GQA, swiglu, RoPE; gpt-1.3b: gelu MLP with biases;
 #: bert-large: non-causal, layernorm, learned positions; mamba2-370m: SSM
-#: stages (conv, SSD scan, gated norm), no attention
-ARCHS = ["tiny-llama", "gpt-1.3b", "bert-large", "mamba2-370m"]
+#: stages (conv, SSD scan, gated norm), no attention; mixtral-8x7b and
+#: qwen3-moe-30b-a3b: MoE (4 experts, top-2 reduced) through the capacity
+#: dispatch with the router aux in the loss, mixtral with its window
+ARCHS = ["tiny-llama", "gpt-1.3b", "bert-large", "mamba2-370m",
+         "mixtral-8x7b", "qwen3-moe-30b-a3b"]
 
 
 def _batch(cfg, bsz=2, seq=24, seed=0):
+    """Tokens, labels and Eq. 1 weights; an MoE model's tokens come from 8
+    ids only, so that routing is skewed and the capacity dispatch drops
+    (a batch of random ids routes too evenly to overflow)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (bsz, seq + 1))
+    toks = rng.integers(0, 8 if cfg.is_moe else cfg.vocab_size,
+                        (bsz, seq + 1))
     w = rng.uniform(0.5, 1.5, (bsz, seq)).astype(np.float32) / (bsz * seq)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "weights": w}
 
@@ -80,6 +91,25 @@ def test_loss_and_grads_match_jax(arch, ce_chunk):
         scale = np.abs(jg).max()
         assert scale > 0
         assert np.abs(g - jg).max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_moe_batches_drop_tokens(arch):
+    """The params and batch of ``test_loss_and_grads_match_jax`` make the
+    capacity dispatch drop assignments in the MoE layers (counted in the
+    port's loss, which that test holds to the reference's; the kept set
+    is held to the reference's in ``tests/test_torch_moe.py``), so that
+    test's loss and grads cover drops."""
+    from repro_torch.models.layers import moe
+    cfg = get_arch(arch).reduced()
+    params = params_from_numpy(jax.device_get(JM.init_params(
+        jax_arch(arch).reduced(), jax.random.PRNGKey(0))), "cpu")
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in _batch(cfg).items()}
+    tb["tokens"], tb["labels"] = tb["tokens"].long(), tb["labels"].long()
+    with moe.counting_drops() as log:
+        M.loss_fn(cfg, params, tb, remat="none")
+    drops = [int(d) for _, d in log]
+    assert len(drops) == cfg.n_layers and sum(drops) > 0, drops
 
 
 @pytest.mark.parametrize("arch", ARCHS)
