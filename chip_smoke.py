@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sdpa-backends   # only SDPA's backward backends
 
 Phases, each printing one JSON line:
 
@@ -22,7 +23,14 @@ Phases, each printing one JSON line:
              and SDPA at the serving shape, beside the least time the card
              could take; the same, in bf16, at the MoE models' prefill
              shapes (qwen3: 32 query heads over 4 KV heads; mixtral: over
-             8, window 4096; D 128);
+             8, window 4096; D 128), at gemma2-9b's local and global
+             prefill shapes (2 x 8192, GQA 16/8, D 256, softcap 50, the
+             local one's window 4096 masking; the library time there is
+             ``flex_attention``'s, compiled, with the softcap as its
+             score_mod and the window as its block mask, held against the
+             plain version; SDPA without the cap, the window as a boolean
+             mask, stands beside it, labelled) and at zamba2-7b's shared
+             block's (8 x 2048, MHA 32/32, D 112);
 4. serve   — ``launch.serve.serve`` on llama-7b at full width (bf16, random
              weights from a seed): batch 8, prompt 512, 32 generated tokens;
              the prefill must launch the bf16 kernel once per layer;
@@ -36,8 +44,8 @@ Phases, each printing one JSON line:
              whose pointers or strides allow only 8, 4 or 2 B copies; the
              HMMA count of the bf16 kernel's SASS (it fails at 0) and both
              kernels' registers and spills; times of kernel and plain
-             version at the serving shape beside the least time the card
-             could take;
+             version at the serving shape and at zamba2-7b's (112 heads, N
+             64) beside the least time the card could take;
 6. serve_mamba2 — ``launch.serve.serve`` on mamba2-370m at full width
              (bf16, random weights from a seed): batch 8, prompt 2048, 32
              generated tokens; the prefill must launch the bf16 SSD kernel
@@ -51,8 +59,18 @@ Phases, each printing one JSON line:
              32 layers (the card does not hold 32); the prefill must launch
              the flash kernel once per layer, no serve a backward kernel;
              each phase starts with the earlier phases' memory freed;
-7. consistency — fp32, TF32 off, full width, for llama-7b, mamba2-370m
-             and qwen3-moe-30b-a3b (4 layers: 48 in fp32 need 122 GB):
+6c. serve_gemma2, serve_zamba2, serve_yi34b — ``launch.serve.serve`` at
+             full width and depth (bf16, random weights from a seed):
+             gemma2-9b at batch 2, prompt 8192 (its context, twice its
+             local window: the local layers' windows mask and their 4096
+             ring slots wrap), 32 tokens, 42 flash launches a prefill;
+             zamba2-7b at batch 8, prompt 2048, 32 tokens, 81 SSD-scan and
+             13 flash launches a prefill; yi-34b at batch 8, prompt 512, 32
+             tokens, 60 flash launches;
+7. consistency — fp32, TF32 off, full width, for llama-7b, mamba2-370m,
+             qwen3-moe-30b-a3b (4 layers: 48 in fp32 need 122 GB),
+             gemma2-9b (4 layers, S 4200: the decode step reads a wrapped
+             local ring) and zamba2-7b (6 layers, one group, S 1024):
              the last logits of a prefill of S+1 tokens against a prefill
              of S tokens and one decode step (the kernel path against the
              plain decode path), within 2e-3 of max|logits|; and each model
@@ -67,14 +85,21 @@ Phases, each printing one JSON line:
              max|plain|) and bf16 (the tensor-core kernels; |err| <= 1e-3
              max|plain| + 1e-2 |plain|), and in bf16 also gemma-2b's D 256
              (MQA), vit-e's D 112 (non-causal, ragged S 257) and qwen3's
-             training shape (GQA 32/4, D 128: dK, dV sum 8 query heads) as
-             views;
+             training shape (GQA 32/4, D 128: dK, dV sum 8 query heads), a
+             gemma2-9b local layer (GQA 16/8, D 256, softcap 50, S 4608,
+             its window of 4096 masking) and zamba2-7b's shared block's
+             training shape (MHA 32/32, D 112) as views;
              each case must launch its dtype's variant once per kernel; the
              HMMA count of both bf16 kernels' SASS (it fails at 0); times of
              the forward with its log-sum-exp, of each backward kernel, of
              the plain backward and of SDPA's at the gpt-1.3b training
              shape, beside the least time the card could take, and of the
-             backward kernels and SDPA's backward at qwen3's;
+             backward kernels and the library's backward at qwen3's,
+             gemma2's and zamba2's shapes (SDPA; at gemma2's, with its
+             softcap and window, ``flex_attention``, and SDPA without the
+             cap beside it); ``--sdpa-backends`` runs instead only SDPA's
+             backward at qwen3's shape under each of its backends (flash,
+             efficient, cuDNN, math) and the kernels the default one ran;
 9. ssd_bwd — the SSD scan's backward kernels (through the autograd
              function of ``ops.ssd_scan``: fp32 on scalar FMAs, bf16 on
              tensor cores) against the plain version's
@@ -96,10 +121,12 @@ Phases, each printing one JSON line:
 10. train_grads — fp32, TF32 off: the loss and every param grad of
              reduced gpt-1.3b, bert-large, mixtral-8x7b (through the flash
              kernels; mixtral's capacity dispatch on tokens of 8 ids, so
-             that it drops, the same assignments on both devices) and
-             mamba2-370m (P 32, N 16, through the SSD kernels) on the card
-             against the same on the CPU (plain versions), within 1e-4 of
-             each leaf's max|grad|;
+             that it drops, the same assignments on both devices),
+             mamba2-370m (P 32, N 16, through the SSD kernels), gemma2-9b
+             (a local/global pair) and zamba2-7b (an SSM group checkpointed
+             inside its element's checkpoint, and the shared block) on the
+             card against the same on the CPU (plain versions), within
+             1e-4 of each leaf's max|grad|;
 11. train  — ``build_train_step(..., substrate="loopback",
              schedule="layered")`` on gpt-1.3b at full width and depth
              (seq 512, two ranks of one plan on the one card, fp32 state,
@@ -112,6 +139,12 @@ Phases, each printing one JSON line:
 11b. train_moe — the same on qwen3-moe-30b-a3b at full width cut to 2
              layers (1.87 B parameters: the vocabulary of 151,936 is most
              of them), the capacity dispatch (each rank call its own);
+11c. train_gemma2, train_zamba2 — the same on gemma2-9b at full width on 4
+             layers (2 pairs) and zamba2-7b on 6 (one group and the shared
+             block): the flash and SSD launches the nested checkpointing
+             predicts (an SSM block's forward three times a rank call);
+             for gemma2, then, 4 steps on one batch from the seeded state
+             at Adam's lr and at a tenth of it (printed, not a gate);
 12. profile — the profiler (``core/profiler.py``) on the card: one
              gpt-1.3b layer at seq 512 in bf16, forward and backward, timed
              by CUDA events at m = 1, 2, 3, 4, 6, 8, 12; the piecewise fit
@@ -120,7 +153,8 @@ Phases, each printing one JSON line:
              for the paper's Cluster A, solved by ``auto_solve`` at batch
              128: fails on an infeasible plan, a sample that is not finite
              and positive, or a flash launch off the bf16 tensor-core
-             kernels;
+             kernels; then zamba2-7b's element (6 SSM blocks and the shared
+             block) profiled at m = 1, 2, 4 (printed, not a gate);
 13. plan_train — the training launcher's own functions
              (``launch.train.solve_plan``, ``_train_loop``) on gpt-1.3b at
              full width and depth: the plan the port's planner solves for
@@ -146,8 +180,8 @@ Then the script's wall time, the card's name and power limit, a line
 ``{"kernels": [...]}`` with each kernel's launches on its main-path run
 (serving for the forwards, phase ``train`` for the flash backward, the
 timed steps of ``plan_train_mamba2`` for the SSD backward; a planned
-step's launches and the MoE phases' beside them), its error and its
-times, and last
+step's launches and the MoE, pair and hybrid phases' beside them), its
+error and its times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -196,6 +230,7 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import moe  # noqa: E402
+from repro_torch.optim.adam import AdamConfig  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of the tensor cores (bf16) and of the fp32 pipe
@@ -231,6 +266,11 @@ MOE_PREFILL_SHAPES = {
     "qwen3-prefill": (8, 32, 4, 512, 512, 128, True, 0, 0.0),
     "mixtral-prefill": (8, 32, 8, 512, 512, 128, True, 4096, 0.0)}
 MOE_TRAIN_SHAPE = (4, 32, 4, 512, 512, 128, True, 0, 0.0)
+# the backward at a gemma2-9b local layer with its window masking (S 4608;
+# GQA 16/8, D 256, softcap 50), and at zamba2-7b's shared block at the
+# two-rank plan's rank 0 (4 rows; MHA 32/32, D 112)
+GEMMA2_BWD_SHAPE = (1, 16, 8, 4608, 4608, 256, True, 4096, 50.0)
+ZAMBA2_TRAIN_SHAPE = (4, 32, 32, 512, 512, 112, True, 0, 0.0)
 # |kernel - plain| <= atol + rtol * |plain|, elementwise.  Both compute in
 # fp32 and round once to the output dtype, so in bf16 they differ by at most
 # one rounding step (<= 2**-7 of the value) plus fp32 noise near zero.
@@ -253,6 +293,7 @@ SSD_VEC_VIEWS = {4: (2, 4, 200, 64, 128), 2: (2, 4, 200, 32, 64),
                  1: (1, 4, 130, 64, 32)}
 KERNEL_OPS = {"flash_attention": flash_ops, "ssd_scan": ssd_ops}
 PTXAS: dict = {}    # kernel instance -> registers and spills (phase build)
+FLEX: list = []     # flex_attention compiled, the library yardstick (_flex)
 MAMBA = "mamba2-370m"
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN = 8, 2048, 32
 
@@ -275,6 +316,8 @@ BWD_BF16_CASES = {
     "gemma-2b-d256-views": (HEAD_DIM_CASES["gemma-2b-d256"], True),
     "vit-e-d112-views": ((2, 16, 16, 257, 257, 112, False, 0, 0.0), True),
     "qwen3-train-views": (MOE_TRAIN_SHAPE, True),
+    "gemma2-local-views": (GEMMA2_BWD_SHAPE, True),
+    "zamba2-d112-views": (ZAMBA2_TRAIN_SHAPE, True),
 }
 # gpt-1.3b training: two ranks on the one card, global batch 10, seq 512
 TRAIN_ARCH, TRAIN_SEQ = "gpt-1.3b", 512
@@ -315,9 +358,41 @@ QWEN3, MIXTRAL = "qwen3-moe-30b-a3b", "mixtral-8x7b"
 MIXTRAL_SERVE_LAYERS = 24
 QWEN3_CONSISTENCY_LAYERS = 4
 MOE_TRAIN_LAYERS = 2
+# gemma2-9b (local/global pairs), zamba2-7b (Mamba2 groups and a shared
+# attention block) and yi-34b, served at full width and depth: gemma2 at
+# its context of 8192, twice its local window, batch 2; zamba2 at
+# mamba2's 8 x 2048; yi at 8 x 512 (64.06 GiB of bf16 weights).  The
+# consistency checks in fp32 at 4 layers (gemma2, S 4200: past the
+# window, so the decode step reads a wrapped ring) and 6 (zamba2, one
+# group); training at full width on 4 layers (gemma2: 2 pairs) and 6
+# (zamba2: one group and the shared block) on the two-rank plan
+GEMMA2, ZAMBA2, YI = "gemma2-9b", "zamba2-7b", "yi-34b"
+GEMMA2_BATCH, GEMMA2_PROMPT = 2, 8192
+PAIR_CONSISTENCY = {GEMMA2: (4, 4200), ZAMBA2: (6, 1024)}
+PAIR_TRAIN_LAYERS = {GEMMA2: 4, ZAMBA2: 6}
+# train_gemma2's losses on one batch repeated, at Adam's default lr and a
+# tenth of it (printed, not a gate)
+TREND_LRS = {GEMMA2: (AdamConfig().lr, AdamConfig().lr / 10)}
+TREND_STEPS = 4
+# the flash kernel at their prefill shapes: gemma2's local and global
+# layers (GQA 16/8, D 256, softcap 50), zamba2's shared block (MHA, D 112)
+PAIR_PREFILL_SHAPES = {
+    "gemma2-local-prefill": (2, 16, 8, 8192, 8192, 256, True, 4096, 50.0),
+    "gemma2-global-prefill": (2, 16, 8, 8192, 8192, 256, True, 0, 50.0),
+    "zamba2-prefill": (8, 32, 32, 2048, 2048, 112, True, 0, 0.0)}
+ZAMBA2_SSD_SHAPE = (8, 112, 2048, 64, 64)     # b, h, l, p, n at its prefill
+# the zamba2 element's profile (printed, not a gate)
+ZAMBA2_PROFILE_MS = (1, 2, 4)
+
+
+CARD: list = []     # the card's name and power limit (phase device)
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the card's name and power
+    limit as ``nvidia-smi`` reads them."""
+    if "phase" in obj and CARD:
+        obj = {**obj, "card": CARD[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -329,6 +404,7 @@ def phase_device() -> dict:
     dev = {"name": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(), "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda}
+    CARD[:] = [smi]
     emit({"phase": "device", **dev})
     return dev
 
@@ -394,11 +470,85 @@ def _compare(case, dtype, views=False) -> float:
     return err
 
 
-def _sdpa(q, k, v, causal):
+def _sdpa(q, k, v, causal, mask=None):
     """PyTorch's own attention on the same (B, H, S, D) inputs, GQA by
-    its ``enable_gqa``; the yardstick only, never called by the port."""
+    its ``enable_gqa``, with ``mask`` (boolean, True = keep) in place of
+    ``causal`` where given; the yardstick only, never called by the port."""
     return F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=q.shape[1] != k.shape[1])
+
+
+def _sdpa_mask(case):
+    """The boolean (Sq, Sk) mask of ``case``'s causal mask and window, for
+    SDPA, where the window masks a key (SDPA has no window); else None."""
+    sq, sk, causal, window = case[3], case[4], case[6], case[7]
+    if not 0 < window < sk:
+        return None
+    qp = torch.arange(sq, device="cuda")[:, None]
+    kp = torch.arange(sk, device="cuda")[None, :]
+    keep = qp - kp < window
+    return keep & (kp <= qp) if causal else keep
+
+
+def _flex(case):
+    """PyTorch's ``flex_attention`` for ``case`` as ``fn(q, k, v)``,
+    compiled (Inductor's Triton templates; once a shape): the tanh softcap
+    as its ``score_mod``, the causal mask and the window as its block mask
+    (fully masked tiles skipped), GQA by ``enable_gqa``.  The one PyTorch
+    call that computes softcapped attention; a yardstick only, never called
+    by the port."""
+    import torch._functorch.config as functorch_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    # the backward is timed over one graph (retain_graph), which a donated
+    # buffer forbids
+    functorch_config.donated_buffer = False
+    if not FLEX:
+        FLEX.append(torch.compile(flex_attention, dynamic=False))
+    _, h, kvh, sq, sk, _, causal, window, cap = case
+
+    def keep(b, hd, qi, ki):
+        ok = ki <= qi if causal else ki >= 0
+        return ok & (qi - ki < window) if window > 0 else ok
+
+    def capped(score, b, hd, qi, ki):
+        return cap * torch.tanh(score / cap)
+    mask = (create_block_mask(keep, None, None, sq, sk, device="cuda")
+            if causal or window > 0 else None)
+    return lambda q, k, v: FLEX[0](q, k, v, score_mod=capped if cap else None,
+                                   block_mask=mask, enable_gqa=h != kvh)
+
+
+def _library(case, q, k, v, fn_ms) -> dict:
+    """The library columns for ``case`` on (q, k, v): where SDPA computes
+    the function (no softcap; no window that masks a key), its time;
+    else ``flex_attention``'s (:func:`_flex`), its output held against the
+    plain version within 2% of max|plain| (it rounds the probabilities to
+    bf16 as the kernel does; a wrong mask or cap is off by tens of per
+    cent), and SDPA's beside it, labelled: without the softcap, the window
+    as a boolean mask.  ``fn_ms(call)`` returns the library time of
+    ``call(q, k, v)``: the forward's or the backward's."""
+    mask = _sdpa_mask(case)
+    sdpa_ms = fn_ms(lambda q, k, v: _sdpa(q, k, v, case[6], mask))
+    if not case[8] and mask is None:
+        return {"library_ms": sdpa_ms, "library_call": "SDPA"}
+    flex = _flex(case)
+    with torch.no_grad():
+        got = flex(q, k, v).float()
+        ref = attention_reference(q, k, v, causal=case[6], window=case[7],
+                                  softcap=case[8]).float()
+    err = (got - ref).abs().max().item()
+    if not err <= 0.02 * ref.abs().max().item():
+        raise AssertionError(f"flex_attention {case}: max err {err} against "
+                             f"the plain version (max {ref.abs().max()})")
+    del got, ref
+    return {"library_ms": fn_ms(flex), "library_call":
+            "flex_attention, compiled: softcap score_mod, causal and window "
+            "block mask", "library_max_abs_err": err, "sdpa_ms": sdpa_ms,
+            "sdpa_note": ", ".join(
+                ["without the softcap"] * bool(case[8]) +
+                ["window as a boolean mask"] * (mask is not None))}
 
 
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -508,41 +658,50 @@ def phase_kernel() -> dict:
     bound_ms, bound_by, nbytes, flops = _bound(SERVE_SHAPE, dtype)
     gqa = {name: _gqa_timing(name, case, errs)
            for name, case in MOE_PREFILL_SHAPES.items()}
+    pair = {name: _gqa_timing(name, case, errs)
+            for name, case in PAIR_PREFILL_SHAPES.items()}
     res = {"phase": "kernel", "max_abs_err": errs, "sass": sass,
            "shape": SERVE_SHAPE, "dtype": "bfloat16",
            "variant": flash_ops.VARIANTS[dtype], "kernel_ms": kernel_ms,
            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-           "kernel_tflops": flops / kernel_ms / 1e9, "moe_shapes": gqa}
+           "kernel_tflops": flops / kernel_ms / 1e9, "moe_shapes": gqa,
+           "pair_hybrid_shapes": pair}
     emit(res)
     return {"variant": flash_ops.VARIANTS[dtype], "max_abs_err": serve_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "moe_shapes": gqa}
+            "bound_ms": bound_ms, "bound_by": bound_by, "moe_shapes": gqa,
+            "pair_hybrid_shapes": pair}
 
 
 def _gqa_timing(name, case, errs) -> dict:
-    """The bf16 kernel at an MoE model's prefill shape: held against its
-    plain version (contiguous and as the model's views, at ``TOL``), then
-    kernel, plain version and SDPA timed beside the bound."""
+    """The bf16 kernel at a model's prefill shape: held against its plain
+    version (contiguous and as the model's views, at ``TOL``), then
+    kernel, plain version and SDPA timed beside the bound.  A window
+    that masks goes to SDPA as a boolean mask; a softcap has no library
+    call (:func:`_library`).  The plain version, which holds the whole
+    (B, H, Sq, Sk) fp32 score tensor, is timed over fewer calls past
+    16 M scores a head."""
     dtype = torch.bfloat16
     err = max(_compare(case, dtype), _compare(case, dtype, views=True))
     errs[f"{name}-bfloat16"] = err
     q, k, v = _qkv(case, dtype)
     kw = dict(causal=case[6], window=case[7], softcap=case[8])
-    if case[7] and case[7] < case[4]:
-        raise AssertionError(f"{name}: SDPA has no window: {case}")
+    big = case[3] * case[4] > 2**24
     kernel_ms = _time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
                          20)
-    plain_ms = _time_ms(lambda: attention_reference(q, k, v, **kw), 10)
-    library_ms = _time_ms(lambda: _sdpa(q, k, v, case[6]), 20)
+    plain_ms = _time_ms(lambda: attention_reference(q, k, v, **kw),
+                        3 if big else 10, warmup=1 if big else 3)
+    library = _library(case, q, k, v,
+                       lambda call: _time_ms(lambda: call(q, k, v), 20))
     bound_ms, bound_by, nbytes, flops = _bound(case, dtype)
     return {"shape": case, "max_abs_err": err, "ms": kernel_ms,
             "ms_repeat": _time_ms(lambda: flash_ops.flash_attention(
                 q, k, v, **kw), 20),
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "plain_ms": plain_ms, **library,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "flops": flops}
+            "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9}
 
 
 def _ssd_inputs(shape, dtype, seed=0, slow=False):
@@ -673,6 +832,8 @@ def phase_ssd_kernel() -> dict:
     kernel_ms_2 = _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20)
     bound_ms, bound_by, nbytes, flops = _ssd_bound(shape, torch.bfloat16)
     variant = ssd_ops.VARIANTS[torch.bfloat16]
+    del inputs
+    zamba2 = _ssd_timing(ZAMBA2_SSD_SHAPE, errs)
     emit({"phase": "ssd_kernel", "max_rel_err": errs,
           "serve_max_abs_err": serve_err, "shape": shape,
           "dtype": "bfloat16", "variant": variant, "sass": sass,
@@ -683,10 +844,28 @@ def phase_ssd_kernel() -> dict:
           "library_ms": None,
           "library_note": "no single PyTorch call computes the SSD scan",
           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-          "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9})
+          "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9,
+          "zamba2_shape": zamba2})
     return {"variant": variant, "max_abs_err": serve_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "zamba2_shape": zamba2}
+
+
+def _ssd_timing(shape, errs) -> dict:
+    """The bf16 SSD kernel at a model's prefill shape, as the model's
+    views: held against its plain version, then kernel and plain version
+    timed beside the bound."""
+    inputs = _ssd_model_views(shape, seed=8)
+    err, errs[f"{shape}-views-bfloat16"] = _ssd_compare(f"{shape} views",
+                                                        inputs)
+    kernel_ms = _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20)
+    plain_ms = _time_ms(lambda: ssd_scan_reference(*inputs), 2, warmup=1)
+    bound_ms, bound_by, nbytes, flops = _ssd_bound(shape, torch.bfloat16)
+    return {"shape": shape, "max_abs_err": err, "ms": kernel_ms,
+            "ms_repeat": _time_ms(lambda: ssd_ops.ssd_scan(*inputs), 20),
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "kernel_tflops": flops / kernel_ms / 1e9}
 
 
 def phase_serve(arch: str, batch: int, prompt: int, gen: int,
@@ -907,9 +1086,9 @@ def _bwd_bound(case, dtype, which: str):
     return _least_ms(nbytes, flops, dtype)
 
 
-def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
-    """Device ms per call of each kernel whose name holds one of
-    ``marks``, from ``torch.profiler`` over ``iters`` calls of ``fn``."""
+def _device_ms_by_name(fn, iters: int) -> dict:
+    """Device ms per call of every kernel ``fn`` launches, by name, from
+    ``torch.profiler`` over ``iters`` calls (after one more)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -917,12 +1096,20 @@ def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(marks, 0.0)
+    out: dict = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            for mark in marks:
-                if mark in evt.name:
-                    out[mark] += evt.time_range.elapsed_us() / 1e3 / iters
+            out[evt.name] = out.get(evt.name, 0.0) + \
+                evt.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
+def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
+    """Device ms per call of the kernels whose name holds each of
+    ``marks``, from ``torch.profiler`` over ``iters`` calls of ``fn``."""
+    by_name = _device_ms_by_name(fn, iters)
+    out = {mark: sum(ms for name, ms in by_name.items() if mark in name)
+           for mark in marks}
     if not all(out.values()):
         raise AssertionError(f"the profiler saw no time for {out}")
     return out
@@ -967,6 +1154,9 @@ def phase_flash_bwd() -> dict:
     sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     sdpa_bwd_ms = _time_ms(lambda: torch.autograd.grad(
         sdpa_out, (qr, kr, vr), dout, retain_graph=True), 20)
+    sdpa_bwd_device_ms = sum(_device_ms_by_name(
+        lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), dout,
+                                    retain_graph=True), 10).values())
     sdpa_fwd_bwd_ms = _time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qr, kr, vr, is_causal=True),
         (qr, kr, vr), dout), 20)
@@ -978,6 +1168,10 @@ def phase_flash_bwd() -> dict:
     bounds = {w: _bwd_bound(TRAIN_SHAPE, dtype, w)
               for w in ("dq", "dkdv", "both")}
     qwen3 = _bwd_timing(MOE_TRAIN_SHAPE, errs["qwen3-train-views-bfloat16"])
+    pair = {"gemma2-local": _bwd_timing(
+                GEMMA2_BWD_SHAPE, errs["gemma2-local-views-bfloat16"]),
+            "zamba2-train": _bwd_timing(
+                ZAMBA2_TRAIN_SHAPE, errs["zamba2-d112-views-bfloat16"])}
     emit({"phase": "flash_bwd", "max_rel_err": errs,
           "train_shape_max_abs_err": main, "shape": TRAIN_SHAPE,
           "dtype": "bfloat16", "variant": flash_ops.VARIANTS[dtype],
@@ -988,25 +1182,70 @@ def phase_flash_bwd() -> dict:
           "bwd_bound_by": bounds["both"][1],
           "bwd_tflops": bounds["both"][3] / bwd_ms / 1e9,
           "plain_bwd_ms": plain_bwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+          "sdpa_bwd_device_ms": sdpa_bwd_device_ms,
           "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
           "bounds": {w: {"ms": b[0], "by": b[1], "bytes": b[2],
                          "flops": b[3]} for w, b in bounds.items()},
           "ptxas": {k: v for k, v in PTXAS.items()
-                    if k.startswith("flash_bwd")}, "qwen3_train": qwen3})
+                    if k.startswith("flash_bwd")}, "qwen3_train": qwen3,
+          "pair_hybrid": pair})
     main_err = {"dq": main["q"], "dkdv": max(main["k"], main["v"])}
     return {w: {"variant": flash_ops.VARIANTS[dtype],
                 "max_abs_err": main_err[w],
                 "ms": by_kernel[f"flash_bwd_{w}_kernel"],
                 "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
                 "bound_ms": bounds[w][0], "bound_by": bounds[w][1],
-               "qwen3_train": qwen3[w]}
+                "qwen3_train": qwen3[w],
+                "pair_hybrid": {n: {**t[w], **{k: t[k] for k in t
+                                               if k.startswith(("library",
+                                                                "sdpa"))}}
+                                for n, t in pair.items()}}
             for w in ("dq", "dkdv")}
+
+
+def _sdpa_backends(case) -> dict:
+    """SDPA's backward at ``case`` (bf16, the model's views), as chosen
+    by default and under each backend forced by ``sdpa_kernel``: two
+    CUDA-event times of 20 calls of ``autograd.grad`` (host work
+    included), the device time of a call summed over its kernels
+    (``torch.profiler``), and for the default its three longest kernels;
+    for a backend that refuses the shape, the first line of its error."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    dtype = torch.bfloat16
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               .requires_grad_() for t in _qkv(case, dtype))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+
+    def timed() -> dict:
+        out = _sdpa(q, k, v, case[6])
+
+        def bwd():
+            return torch.autograd.grad(out, (q, k, v), dout,
+                                       retain_graph=True)
+        kernels = _device_ms_by_name(bwd, 10)
+        return {"ms": [_time_ms(bwd, 20) for _ in range(2)],
+                "device_ms": sum(kernels.values()),
+                "kernels_ms": {n[:80]: ms for n, ms in sorted(
+                    kernels.items(), key=lambda kv: -kv[1])[:3]}}
+
+    res = {"default": timed()}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                res[name.lower()] = timed()
+        except RuntimeError as exc:     # the backend does not take it
+            res[name.lower()] = {"refused": str(exc).strip().splitlines()[0]
+                                 [:160]}
+    return res
 
 
 def _bwd_timing(case, rel_err) -> dict:
     """The bf16 backward kernels at ``case`` as the model's views: each
-    kernel's device ms (``torch.profiler``) beside its bound, and SDPA's
-    backward at the same shape."""
+    kernel's device ms (``torch.profiler``) beside its bound, and the
+    library call's backward at the same shape (:func:`_library`), CUDA
+    events and device time."""
     dtype = torch.bfloat16
     q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in _qkv(case, dtype))
@@ -1018,12 +1257,21 @@ def _bwd_timing(case, rel_err) -> dict:
         lambda: flash_ops._backward(q, k, v, lse, dout, *kw), 20,
         ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = _sdpa(qr, kr, vr, case[6])
-    sdpa_bwd = [_time_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qr, kr, vr), dout, retain_graph=True), 20)
-        for _ in range(2)]
+    device_ms = []      # SDPA's, then flex_attention's where it is timed
+
+    def bwd_ms(call):
+        out = call(qr, kr, vr)
+
+        def bwd():
+            return torch.autograd.grad(out, (qr, kr, vr), dout,
+                                       retain_graph=True)
+        device_ms.append(sum(_device_ms_by_name(bwd, 10).values()))
+        return _time_ms(bwd, 20)
     res = {"shape": case, "max_rel_err": rel_err,
-           "library_ms": sdpa_bwd[0], "library_ms_repeat": sdpa_bwd[1]}
+           **_library(case, qr, kr, vr, bwd_ms),
+           "library_device_ms": device_ms[-1]}
+    if len(device_ms) == 2:
+        res["sdpa_device_ms"] = device_ms[0]
     for w in ("dq", "dkdv"):
         bound = _bwd_bound(case, dtype, w)
         res[w] = {"ms": by_kernel[f"flash_bwd_{w}_kernel"],
@@ -1216,17 +1464,45 @@ def _loss_and_grads(cfg, params, batch):
     return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
 
+def _train_kernel_calls(cfg) -> dict:
+    """The kernel launches of one rank call of a training step (every
+    element checkpointed): each attention layer's flash forward twice and
+    each backward kernel once; each SSM block's scan forward twice, three
+    times inside a zamba group (its blocks are checkpointed again inside
+    the group's checkpoint: the outer recompute runs them, and the inner
+    recompute again), and its backward once."""
+    attn = ssm = nested = 0
+    for spec in M.build_stages(cfg):
+        if spec.kind in ("dense", "pair"):
+            attn += spec.count * (2 if spec.kind == "pair" else 1)
+        elif spec.kind == "ssm":
+            ssm += spec.count
+        else:
+            attn += spec.count
+            nested += spec.count * spec.inner
+    return {"flash_attention": 2 * attn, "flash_bwd_dq": attn,
+            "flash_bwd_dkdv": attn, "ssd_scan": 2 * ssm + 3 * nested,
+            "ssd_scan_bwd": ssm + nested}
+
+
+def _launch_counts() -> dict:
+    return {"flash_attention": flash_ops.LAUNCHES,
+            **dict(flash_ops.BWD_LAUNCHES), "ssd_scan": ssd_ops.LAUNCHES,
+            "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES}
+
+
 def phase_train_grads() -> dict:
     """fp32, TF32 off: reduced models' loss and grads through the kernels
     on the card against the plain versions on the CPU, same params; the
-    dense and MoE models through the flash kernels, mamba2 (P 32, N 16)
-    through the SSD kernels.  The MoE model (mixtral, 4 experts, top-2)
-    gets tokens of 8 ids, so that routing is skewed: its capacity
-    dispatches must drop assignments, the same number on both devices."""
+    dense, MoE and gemma2 pair models through the flash kernels, mamba2
+    (P 32, N 16) through the SSD kernels, zamba2 through both.  The MoE
+    model (mixtral, 4 experts, top-2) gets tokens of 8 ids, so that
+    routing is skewed: its capacity dispatches must drop assignments, the
+    same number on both devices."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = {}
-    for arch in ("gpt-1.3b", "bert-large", MAMBA, MIXTRAL):
+    for arch in ("gpt-1.3b", "bert-large", MAMBA, MIXTRAL, GEMMA2, ZAMBA2):
         cfg = get_arch(arch).reduced()
         cpu_params = M.init_params(cfg, torch.Generator().manual_seed(3),
                                    "cpu", all_fp32=True)
@@ -1239,24 +1515,16 @@ def phase_train_grads() -> dict:
             batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
                      "weights": torch.full((2, 128), 1 / 256,
                                            device=device)}
-            before = (flash_ops.LAUNCHES, dict(flash_ops.BWD_LAUNCHES),
-                      ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES)
+            before = _launch_counts()
             with moe.counting_drops() as dropped:
                 out[device] = _loss_and_grads(
                     cfg, params_from_numpy(tree, device), batch)
             drops[device] = sum(int(d) for _, d in dropped)
             torch.cuda.synchronize()
-        fwd = flash_ops.LAUNCHES - before[0]
-        bwd = {n: c - before[1][n] for n, c in flash_ops.BWD_LAUNCHES.items()}
-        ssd = (ssd_ops.LAUNCHES - before[2], ssd_ops.BWD_LAUNCHES - before[3])
-        # each checkpointed layer: its kernel's forward twice, backward once
-        n_attn = 0 if cfg.is_ssm else cfg.n_layers
-        n_ssm = cfg.n_layers if cfg.is_ssm else 0
-        if fwd != 2 * n_attn or set(bwd.values()) != {n_attn} or \
-                ssd != (2 * n_ssm, n_ssm):
-            raise AssertionError(f"{arch}: flash launches {fwd} forward, "
-                                 f"{bwd} backward; SSD launches {ssd} for "
-                                 f"{cfg.n_layers} checkpointed layers")
+        launches = {n: c - before[n] for n, c in _launch_counts().items()}
+        if launches != _train_kernel_calls(cfg):
+            raise AssertionError(f"{arch}: launches {launches}, expected "
+                                 f"{_train_kernel_calls(cfg)}")
         if cfg.is_moe and not drops["cpu"] == drops["cuda"] > 0:
             raise AssertionError(f"{arch}: dropped assignments {drops}: "
                                  f"the same number on both, more than 0")
@@ -1274,7 +1542,8 @@ def phase_train_grads() -> dict:
             worst = max(worst, err / scale)
         res[arch] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
                      "grad_max_rel_err": worst, "leaves": len(grads_c),
-                     "dropped_assignments": drops["cuda"]}
+                     "dropped_assignments": drops["cuda"],
+                     "launches": launches}
     emit({"phase": "train_grads", "dtype": "float32", **res})
     return res
 
@@ -1310,22 +1579,26 @@ def _rank_calls(schedule, plan: Plan) -> int:
     return calls
 
 
-def _check_train_launches(phase: str, n: int) -> dict:
-    """The flash launches since the counts were zeroed: each of ``n``
-    layer calls (rank calls times layers) runs the layer's forward twice
-    (checkpointed) and its backward once, all on the bf16 tensor-core
-    kernels."""
-    launches = {"flash_attention": flash_ops.LAUNCHES,
-                **dict(flash_ops.BWD_LAUNCHES)}
-    want = {"flash_attention": 2 * n, "flash_bwd_dq": n,
-            "flash_bwd_dkdv": n}
-    want_var = {"fp32-fma": 0, "bf16-mma": 2 * n}
-    if launches != want or flash_ops.VARIANT_LAUNCHES != want_var or \
-            flash_ops.BWD_VARIANT_LAUNCHES != want_var:
-        raise AssertionError(f"{phase}: flash launches {launches} (forward "
-                             f"{flash_ops.VARIANT_LAUNCHES}, backward "
-                             f"{flash_ops.BWD_VARIANT_LAUNCHES}), expected "
-                             f"{want}, all bf16")
+def _check_train_launches(phase: str, cfg, calls: int) -> dict:
+    """The launches since the counts were zeroed: ``calls`` rank calls,
+    each making :func:`_train_kernel_calls`' launches, every one on the
+    bf16 tensor-core kernels (a backward variant counts each of the flash
+    backward's two kernels)."""
+    per = _train_kernel_calls(cfg)
+    want = {n: c * calls for n, c in per.items()}
+    variants = {
+        "flash": (flash_ops.VARIANT_LAUNCHES, want["flash_attention"]),
+        "flash_bwd": (flash_ops.BWD_VARIANT_LAUNCHES,
+                      2 * want["flash_bwd_dq"]),
+        "ssd": (ssd_ops.VARIANT_LAUNCHES, want["ssd_scan"]),
+        "ssd_bwd": (ssd_ops.BWD_VARIANT_LAUNCHES, want["ssd_scan_bwd"])}
+    launches = _launch_counts()
+    if launches != want or any(
+            got != {"fp32-fma": 0, "bf16-mma": n}
+            for got, n in variants.values()):
+        raise AssertionError(f"{phase}: launches {launches} (variants "
+                             f"{ {k: v[0] for k, v in variants.items()} }),"
+                             f" expected {want}, all bf16")
     return launches
 
 
@@ -1336,12 +1609,30 @@ def _train_plan(model: str) -> Plan:
                 global_batch=sum(r.b for r in ranks), ranks=ranks)
 
 
+def _same_batch_losses(cfg, plan, block, lr: float) -> list:
+    """The losses of TREND_STEPS steps on one batch from the seeded state,
+    at Adam's ``lr``: whether the steps descend on the batch they were
+    taken on."""
+    engine = build_train_step(cfg, plan, substrate="loopback",
+                              schedule="layered", seq_len=TRAIN_SEQ,
+                              adam=AdamConfig(lr=lr))
+    state = engine.init_state(torch.Generator(device="cuda").manual_seed(0))
+    losses = []
+    for _ in range(TREND_STEPS):
+        state, loss = engine.step(state, block)
+        losses.append(loss)
+    del engine, state
+    torch.cuda.empty_cache()
+    return losses
+
+
 def phase_train(arch: str = TRAIN_ARCH, layers: int = 0,
-                phase: str = "train") -> dict:
+                phase: str = "train", trend_lrs=()) -> dict:
     """``arch`` at full width (its first ``layers`` layers when given,
     else full depth) through the loopback MPMD engine on the fixed
     two-rank plan (TRAIN_RANKS); returns the flash launches of the timed
-    steps."""
+    steps.  For each of ``trend_lrs``, then, :func:`_same_batch_losses`
+    on the first timed step's batch (printed, not a gate)."""
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -1357,7 +1648,7 @@ def phase_train(arch: str = TRAIN_ARCH, layers: int = 0,
               for i in range(TRAIN_STEPS + 1)]
     state, warm_loss = engine.step(state, blocks[0])
     torch.cuda.synchronize()
-    _zero_flash_counts()
+    _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     units = [g.name for g in engine.trainer.groups]
@@ -1378,28 +1669,35 @@ def phase_train(arch: str = TRAIN_ARCH, layers: int = 0,
     if not all(np.isfinite(losses + [warm_loss])):
         raise AssertionError(f"non-finite loss: {warm_loss}, {losses}")
     launches = _check_train_launches(
-        phase, TRAIN_STEPS * _rank_calls(engine.schedule, plan) *
-        cfg.n_layers)
+        phase, cfg, TRAIN_STEPS * _rank_calls(engine.schedule, plan))
     mean_ms = float(np.mean(step_ms))
     samples_s = plan.global_batch / (mean_ms / 1e3)
-    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
-          "of_layers": get_arch(arch).n_layers,
-          "d_model": cfg.d_model, "params": sum(
-              g.layout.size * g.count for g in engine.trainer.groups),
-          "seq": TRAIN_SEQ, "global_batch": plan.global_batch,
-          "ranks": TRAIN_RANKS, "schedule": "layered", "init_s": init_s,
-          "warmup_loss": warm_loss, "losses": losses, "step_ms": step_ms,
-          "mean_step_ms": mean_ms, "samples_s": samples_s,
-          "tokens_s": samples_s * TRAIN_SEQ, "peak_mem_gib": peak / 2**30,
-          "launches_per_step": {k: v // TRAIN_STEPS
-                                for k, v in launches.items()},
-          "bwd_variant_launches_per_step": {
-              k: v // TRAIN_STEPS
-              for k, v in flash_ops.BWD_VARIANT_LAUNCHES.items()},
-          "collectives": dict(engine.trainer.substrate.stats),
-          "memory": engine.memory_report(state).splitlines()})
+    res = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+           "of_layers": get_arch(arch).n_layers,
+           "d_model": cfg.d_model, "params": sum(
+               g.layout.size * g.count for g in engine.trainer.groups),
+           "seq": TRAIN_SEQ, "global_batch": plan.global_batch,
+           "ranks": TRAIN_RANKS, "schedule": "layered", "init_s": init_s,
+           "warmup_loss": warm_loss, "losses": losses, "step_ms": step_ms,
+           "mean_step_ms": mean_ms, "samples_s": samples_s,
+           "tokens_s": samples_s * TRAIN_SEQ, "peak_mem_gib": peak / 2**30,
+           "launches_per_step": {k: v // TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "bwd_variant_launches_per_step": {
+               k: v // TRAIN_STEPS
+               for k, v in flash_ops.BWD_VARIANT_LAUNCHES.items()},
+           "ssd_bwd_variant_launches_per_step": {
+               k: v // TRAIN_STEPS
+               for k, v in ssd_ops.BWD_VARIANT_LAUNCHES.items()},
+           "collectives": dict(engine.trainer.substrate.stats),
+           "memory": engine.memory_report(state).splitlines()}
     del engine, state
     torch.cuda.empty_cache()
+    if trend_lrs:
+        res["same_batch_losses"] = {
+            lr: _same_batch_losses(cfg, plan, blocks[1], lr)
+            for lr in trend_lrs}
+    emit(res)
     return launches
 
 
@@ -1462,9 +1760,29 @@ def phase_profile() -> dict:
            "h100_spec": dataclasses.asdict(h100),
            "h100_spec_memory_bytes": h100.memory_bytes,
            "card_total_memory_bytes":
-               torch.cuda.get_device_properties(0).total_memory}
+               torch.cuda.get_device_properties(0).total_memory,
+           "zamba2": _profile_zamba2()}
     emit(res)
     return res
+
+
+def _profile_zamba2() -> dict:
+    """zamba2-7b's element through the profiler on the card: its 6 SSM
+    blocks and the shared block (fp32 params, bf16 activations) at m =
+    ZAMBA2_PROFILE_MS, seq 512, forward and backward, and the launches
+    the sweeps made.  Printed, not a gate."""
+    cfg = get_arch(ZAMBA2)
+    _zero_counts()
+    fwd = profiler.profile_layer_forward(cfg, TRAIN_SEQ,
+                                         ms=ZAMBA2_PROFILE_MS)
+    bwd = profiler.profile_layer_backward(cfg, TRAIN_SEQ,
+                                          ms=ZAMBA2_PROFILE_MS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "element": "6 SSM blocks, the shared block",
+            "seq": TRAIN_SEQ, "fwd_ms": {m: t * 1e3 for m, t in fwd},
+            "bwd_ms": {m: t * 1e3 for m, t in bwd},
+            "launches": _launch_counts()}
 
 
 class _TimedEngine:
@@ -1559,13 +1877,13 @@ def _resume_check() -> dict:
             "resumed_loss": loss, "straight_loss": want}
 
 
-def _planned_run(phase: str, argv, check_launches) -> dict:
+def _planned_run(phase: str, argv) -> dict:
     """The launcher's plan for ``argv`` at full width and depth through
     its ``_train_loop``: 1 warm-up step and PLAN_STEPS timed ones, every
     launch count zeroed after the warm-up and checked by
-    ``check_launches(rank_layer_calls)`` after the last step; finite
-    losses, every rank's shard changed by each step.  Returns the phase's
-    record, ``launches_per_step`` included."""
+    :func:`_check_train_launches` after the last step; finite losses,
+    every rank's shard changed by each step.  Returns the phase's record,
+    ``launches_per_step`` included."""
     args = train_launch.parser().parse_args(
         argv + ["--steps", str(1 + PLAN_STEPS)])
     engine, plan, summary = _launcher_engine(args)
@@ -1590,7 +1908,7 @@ def _planned_run(phase: str, argv, check_launches) -> dict:
     if not all(np.isfinite(timed.losses)):
         raise AssertionError(f"{phase}: non-finite loss {timed.losses}")
     rank_calls = _rank_calls(engine.schedule, plan)
-    launches = check_launches(PLAN_STEPS * rank_calls * cfg.n_layers)
+    launches = _check_train_launches(phase, cfg, PLAN_STEPS * rank_calls)
     step_ms = timed.step_ms[1:]
     mean_ms = float(np.mean(step_ms))
     sim = engine.simulated_iteration_seconds()
@@ -1623,33 +1941,10 @@ def phase_plan_train() -> dict:
     """gpt-1.3b at full width and depth on the plan ``launch.train``
     solves for Cluster A at batch 128, through its ``_train_loop``: 1
     warm-up step and 2 timed ones; then a checkpoint's exact resume."""
-    res = _planned_run("plan_train", PLAN_ARGS,
-                       lambda n: _check_train_launches("plan_train", n))
+    res = _planned_run("plan_train", PLAN_ARGS)
     res["resume"] = _resume_check()
     emit(res)
     return res["launches_per_step"]
-
-
-def _check_ssm_train_launches(phase: str, n: int) -> dict:
-    """The SSD launches since the counts were zeroed: each of ``n`` layer
-    calls (rank calls times layers) runs the scan's forward twice
-    (checkpointed) and its backward once, all bf16 on tensor cores; no
-    flash kernel runs."""
-    launches = {"ssd_scan": ssd_ops.LAUNCHES,
-                "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES}
-    if launches != {"ssd_scan": 2 * n, "ssd_scan_bwd": n} or \
-            ssd_ops.VARIANT_LAUNCHES != {"fp32-fma": 0, "bf16-mma": 2 * n} \
-            or ssd_ops.BWD_VARIANT_LAUNCHES != {"fp32-fma": 0,
-                                                "bf16-mma": n}:
-        raise AssertionError(f"{phase}: SSD launches {launches} (forward "
-                             f"{ssd_ops.VARIANT_LAUNCHES}, backward "
-                             f"{ssd_ops.BWD_VARIANT_LAUNCHES}), expected "
-                             f"{2 * n} forward and {n} backward, all bf16")
-    flash = (flash_ops.LAUNCHES, sum(flash_ops.BWD_LAUNCHES.values()))
-    if flash != (0, 0):
-        raise AssertionError(f"{phase}: flash launches {flash} in a model "
-                             f"with no attention")
-    return launches
 
 
 def phase_plan_train_mamba2() -> dict:
@@ -1657,9 +1952,7 @@ def phase_plan_train_mamba2() -> dict:
     solves for Cluster A at seq 2048, batch 32, through its
     ``_train_loop``: 1 warm-up step and 2 timed ones; every SSD gradient
     from the CUDA backward kernel."""
-    res = _planned_run(
-        "plan_train_mamba2", MAMBA_PLAN_ARGS,
-        lambda n: _check_ssm_train_launches("plan_train_mamba2", n))
+    res = _planned_run("plan_train_mamba2", MAMBA_PLAN_ARGS)
     emit(res)
     return res["launches_per_step"]
 
@@ -1670,6 +1963,10 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     dev = phase_device()
+    if sys.argv[1:] == ["--sdpa-backends"]:
+        emit({"phase": "sdpa_backends", "shape": MOE_TRAIN_SHAPE,
+              **_sdpa_backends(MOE_TRAIN_SHAPE)})
+        return 0
     phase_build()
     flash = phase_kernel()
     ssd = phase_ssd_kernel()
@@ -1688,15 +1985,33 @@ def main() -> int:
             MIXTRAL, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_mixtral",
             {"flash_attention": MIXTRAL_SERVE_LAYERS, "ssd_scan": 0},
             layers=MIXTRAL_SERVE_LAYERS)}
+    zamba2 = get_arch(ZAMBA2)
+    pair_launches = {
+        "serve_gemma2": phase_serve(
+            GEMMA2, GEMMA2_BATCH, GEMMA2_PROMPT, SERVE_GEN, "serve_gemma2",
+            {"flash_attention": get_arch(GEMMA2).n_layers, "ssd_scan": 0}),
+        "serve_zamba2": phase_serve(
+            ZAMBA2, MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, "serve_zamba2",
+            {"flash_attention": zamba2.n_layers // zamba2.hybrid_attn_every,
+             "ssd_scan": zamba2.n_layers}),
+        "serve_yi34b": phase_serve(
+            YI, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_yi34b",
+            {"flash_attention": get_arch(YI).n_layers, "ssd_scan": 0})}
     phase_consistency("llama-7b", 2, 256)
     phase_consistency(MAMBA, 2, 1024)
     phase_consistency(QWEN3, 2, 256, layers=QWEN3_CONSISTENCY_LAYERS)
+    for arch, (layers, seq) in PAIR_CONSISTENCY.items():
+        phase_consistency(arch, 2, seq, layers=layers)
     bwd = phase_flash_bwd()
     ssd_bwd = phase_ssd_bwd()
     phase_train_grads()
     bwd_launches = phase_train()
     moe_launches["train_moe"] = phase_train(QWEN3, MOE_TRAIN_LAYERS,
                                             "train_moe")
+    for arch, layers in PAIR_TRAIN_LAYERS.items():
+        phase = "train_" + arch.split("-")[0]
+        pair_launches[phase] = phase_train(arch, layers, phase,
+                                           TREND_LRS.get(arch, ()))
     phase_profile()
     plan_launches = phase_plan_train()
     mamba_launches = phase_plan_train_mamba2()
@@ -1711,6 +2026,8 @@ def main() -> int:
          "launches_planned_step": plan_launches["flash_attention"],
          "launches_moe": {k: v["flash_attention"]
                           for k, v in moe_launches.items()},
+         "launches_pair_hybrid": {k: v["flash_attention"]
+                                  for k, v in pair_launches.items()},
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1721,19 +2038,27 @@ def main() -> int:
            "launches": bwd_launches[f"flash_bwd_{w}"],
            "launches_planned_step": plan_launches[f"flash_bwd_{w}"],
            "launches_train_moe": moe_launches["train_moe"][f"flash_bwd_{w}"],
+           "launches_pair_hybrid": {
+               k: pair_launches[k][f"flash_bwd_{w}"]
+               for k in ("train_gemma2", "train_zamba2")},
            **bwd[w]}
           for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:72",
          "launches": ssd_launches["ssd_scan"],
-         "launches_planned_step": mamba_launches["ssd_scan"], **ssd},
+         "launches_planned_step": mamba_launches["ssd_scan"],
+         "launches_pair_hybrid": {
+             k: pair_launches[k]["ssd_scan"]
+             for k in ("serve_zamba2", "train_zamba2")}, **ssd},
         {"name": "ssd_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
          "replaces": None,
          "differentiates": "src/repro/kernels/ssd_scan/ssd_scan.py:72",
          "launches": mamba_launches["ssd_scan_bwd"] * PLAN_STEPS,
          "launches_planned_step": mamba_launches["ssd_scan_bwd"],
+         "launches_pair_hybrid": {
+             "train_zamba2": pair_launches["train_zamba2"]["ssd_scan_bwd"]},
          **ssd_bwd}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

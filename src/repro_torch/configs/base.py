@@ -207,6 +207,7 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import every config module the port has once so registrations run
-    from repro_torch.configs import (gemma_2b, mamba2_370m,  # noqa: F401
-                                     mixtral_8x7b, paper_models,
-                                     qwen3_moe_30b_a3b, stablelm_1_6b)
+    from repro_torch.configs import (gemma2_9b, gemma_2b,  # noqa: F401
+                                     mamba2_370m, mixtral_8x7b,
+                                     paper_models, qwen3_moe_30b_a3b,
+                                     stablelm_1_6b, yi_34b, zamba2_7b)

@@ -57,7 +57,8 @@ class LoopbackSubstrate(CollectiveSubstrate):
     # --- flat wire format ---------------------------------------------------
     # One layout path for params, gradients and optimizer moments: a
     # model-shaped tree ⇄ per-unit flat fp32 buffers (``(padded,)``, or
-    # ``(count, padded)`` for stacked stage units) ⇄ per-rank ragged slices.
+    # ``(count, padded)`` for stage units, whose leaves keep their count
+    # dim even at count 1) ⇄ per-rank ragged slices.
 
     def flatten_tree(self, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Full model-shaped tree → {unit: flat padded buffer} on the
@@ -67,7 +68,7 @@ class LoopbackSubstrate(CollectiveSubstrate):
         out: Dict[str, torch.Tensor] = {}
         for g in self.planner.groups:
             sub = grouped[g.name]
-            lead = (g.count,) if g.count > 1 else ()
+            lead = (g.count,) if g.stage_idx >= 0 else ()
             flat = torch.zeros(lead + (g.layout.padded,),
                                dtype=torch.float32, device=self.device)
             if isinstance(sub, list):

@@ -3,7 +3,7 @@
 The port of ``repro.core.engine.units``.  An FSDP *unit* is the
 granularity of Cephalo's gather/compute/scatter cycle: one transformer
 stage element (stacked over the stage's count), or the embed / head /
-misc param families.  The grouping is a function of the architecture's
+misc param families, or the zamba2 hybrid's shared block.  The grouping is a function of the architecture's
 param tree alone, so it is computed once from shapes: the tree of
 ``init_params`` on the meta device, where the reference uses
 ``jax.eval_shape``; nothing is allocated.
@@ -24,8 +24,8 @@ from repro_torch.models import model as M
 
 @dataclasses.dataclass
 class UnitGroup:
-    """One FSDP unit family: 'embed' / 'head' / 'misc' / 'stage<i>' (the
-    latter stacked over the stage's element count)."""
+    """One FSDP unit family: 'embed' / 'head' / 'misc' / 'shared' /
+    'stage<i>' (the latter stacked over the stage's element count)."""
 
     name: str
     layout: fsdp.UnitLayout
@@ -43,6 +43,8 @@ def split_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
         if k in params:
             misc[k] = params[k]
     groups["misc"] = misc
+    if "shared" in params:
+        groups["shared"] = params["shared"]
     for i, sp in enumerate(params["stages"]):
         groups[f"stage{i}"] = sp
     return groups
@@ -59,6 +61,8 @@ def merge_params(grouped: Dict[str, Any], n_stages: int) -> Dict[str, Any]:
             params[k] = grouped["misc"][k]
     if "head" in grouped:
         params["head"] = grouped["head"]["head"]
+    if "shared" in grouped:
+        params["shared"] = grouped["shared"]
     params["stages"] = [grouped[f"stage{i}"] for i in range(n_stages)]
     return params
 

@@ -37,6 +37,7 @@ from repro_torch.core.cost_model import (ClusterCostModel, CommModel,
                                          MemoryModel, analytic_latency_model,
                                          fit_piecewise)
 from repro_torch.core.model_stats import build_model_stats
+from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
 #: The standard small-m profiling sweep (Sec. 3.1).  Shared by the
@@ -46,14 +47,16 @@ PROFILE_MS: Tuple[int, ...] = (1, 2, 3, 4, 6, 8)
 
 
 def _layer(cfg: ArchConfig, device: torch.device):
-    """(spec, fp32 params of one element) of the first stage, drawn from a
-    seeded generator on ``device``."""
-    if cfg.is_hybrid:
-        raise NotImplementedError("profiling the hybrid (zamba2) shared "
-                                  "block: later slice")
+    """(spec, fp32 params of one element of the first stage, fp32 params of
+    the shared block of a hybrid or None), drawn from a seeded generator
+    on ``device``: a zamba2 element is its SSM blocks and the shared
+    block applied after them."""
     spec = M.build_stages(cfg)[0]
     gen = torch.Generator(device).manual_seed(0)
-    return spec, M._element_init(gen, cfg, spec, device)
+    bp = M._element_init(gen, cfg, spec, device)
+    shared = B.dense_block_init(gen, cfg, local=False, device=device) \
+        if cfg.is_hybrid else None
+    return spec, bp, shared
 
 
 def _input(cfg: ArchConfig, m: int, seq: int, device: torch.device):
@@ -92,14 +95,14 @@ def profile_layer_forward(cfg: ArchConfig, seq: int,
                           ) -> List[Tuple[int, float]]:
     """Measured (m, seconds) samples for one block's forward pass."""
     device = M.resolve_device(device)
-    spec, bp = _layer(cfg, device)
+    spec, bp, shared = _layer(cfg, device)
     out = []
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
 
         @torch.no_grad()
         def fn():
-            return M.element_apply(cfg, spec, bp, x, pos)[0]
+            return M.element_apply(cfg, spec, bp, x, pos, shared)[0]
 
         out.append((m, _best_seconds(fn, device, repeats)))
     return out
@@ -111,9 +114,11 @@ def profile_layer_backward(cfg: ArchConfig, seq: int,
                            device: torch.device | str = "cuda"
                            ) -> List[Tuple[int, float]]:
     """Measured (m, seconds) samples for one block's forward and backward:
-    the grads of ``sum(y*y)`` with respect to the block's params."""
+    the grads of ``sum(y*y)`` with respect to the block's params (a
+    hybrid's shared block is applied, as in the reference, and not
+    differentiated)."""
     device = M.resolve_device(device)
-    spec, bp = _layer(cfg, device)
+    spec, bp, shared = _layer(cfg, device)
     bp = M.tree_map(bp, lambda _, t: t.requires_grad_(True))
     leaves: List[torch.Tensor] = []
     M.tree_map(bp, lambda _, t: leaves.append(t))
@@ -122,7 +127,7 @@ def profile_layer_backward(cfg: ArchConfig, seq: int,
         x, pos = _input(cfg, m, seq, device)
 
         def fn():
-            y, _ = M.element_apply(cfg, spec, bp, x, pos)
+            y, _ = M.element_apply(cfg, spec, bp, x, pos, shared)
             return torch.autograd.grad(torch.sum(y * y), leaves)
 
         out.append((m, _best_seconds(fn, device, repeats)))

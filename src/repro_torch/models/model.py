@@ -1,11 +1,14 @@
-"""The model's spine: config-driven decoder stacks (dense, MoE and SSM
-stages).
+"""The model's spine: config-driven decoder stacks (dense, MoE, SSM,
+gemma2's local/global pairs and the zamba2 hybrid).
 
 An architecture compiles to a list of :class:`StageSpec`s — homogeneous
 groups of blocks whose parameters are stacked on a leading layer
 dimension, exactly as in ``repro.models.model``: ``stages[0]["attn"]["wq"]``
-is ``(L, d, H, hd)``.  The JAX package scans over that dimension; here a
-Python loop indexes it.
+is ``(L, d, H, hd)``.  A ``pair`` element holds a ``local`` and a
+``global`` block; a ``zamba`` element holds ``mamba``, its ``inner`` SSM
+blocks stacked a second time, ``(count, inner, ...)``, and applies the
+top-level ``shared`` block after them.  The JAX package scans over these
+dimensions; here a Python loop indexes them.
 
 Public API (plain functions over a params dict, plus :class:`DecoderLM`,
 the ``nn.Module`` that holds the parameters):
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -76,20 +79,32 @@ def storage_dtype(path: Sequence[str], dtype: torch.dtype) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class StageSpec:
-    kind: str          # dense | ssm (pair | zamba: not ported yet)
+    kind: str          # dense | pair | ssm | zamba
     count: int
     local: bool = False
+    inner: int = 0     # zamba: mamba blocks per group
 
 
 def build_stages(cfg: ArchConfig) -> List[StageSpec]:
-    """The stages of ``cfg``: one ``dense`` stage or, for Mamba2, one
-    ``ssm`` stage.  Hybrid (zamba2) and local/global pair stages raise."""
+    """The stages of ``cfg``: Mamba2 one ``ssm`` stage; a hybrid (zamba2)
+    ``zamba`` groups of ``hybrid_attn_every`` SSM blocks, then an ``ssm``
+    stage of the layers left over; local/global attention (gemma2)
+    ``pair`` stages, then one global ``dense`` layer if the count is odd;
+    every other model one ``dense`` stage."""
     if cfg.is_ssm:
         return [StageSpec("ssm", cfg.n_layers)]
     if cfg.is_hybrid:
-        raise NotImplementedError("hybrid (zamba2) stages: later slice")
+        groups = cfg.n_layers // cfg.hybrid_attn_every
+        tail = cfg.n_layers - groups * cfg.hybrid_attn_every
+        out = [StageSpec("zamba", groups, inner=cfg.hybrid_attn_every)]
+        if tail:
+            out.append(StageSpec("ssm", tail))
+        return out
     if cfg.attn_kind == AttnKind.LOCAL_GLOBAL:
-        raise NotImplementedError("local/global pair stages: later slice")
+        out = [StageSpec("pair", cfg.n_layers // 2)]
+        if cfg.n_layers % 2:
+            out.append(StageSpec("dense", 1, local=False))
+        return out
     local = cfg.attn_kind == AttnKind.SLIDING
     return [StageSpec("dense", cfg.n_layers, local=local)]
 
@@ -116,9 +131,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     Values are drawn in fp32 from ``generator`` (which must live on
     ``device``); all leaves but the fp32 ones are stored in the config dtype
     (see :func:`storage_dtype`), or every leaf in fp32 with ``all_fp32``
-    (training state, which the JAX package keeps in fp32).  Layers are
-    drawn one at a time into the stacked tensors, so fp32 copies of at most
-    one layer exist at once.  ``device="meta"`` gives shapes only.
+    (training state, which the JAX package keeps in fp32).  Elements are
+    drawn one at a time into the stacked tensors, so fp32 copies of at
+    most one element exist at once: one layer, a pair's two, or one SSM
+    block of a zamba group, whose blocks are stacked as they are drawn.
+    ``device="meta"`` gives shapes only.
     """
     device = resolve_device(device)
     dtype = torch.float32 if all_fp32 else compute_dtype(cfg)
@@ -142,29 +159,54 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if cfg.frontend_dim:
         params["frontend_proj"] = store(("frontend_proj",), dense_init(
             generator, (cfg.frontend_dim, cfg.d_model), device=device))
-    stages = []
-    for spec in build_stages(cfg):
-        stacked = None
-        for i in range(spec.count):
-            elem = _element_init(generator, cfg, spec, device)
-            if stacked is None:
-                stacked = tree_map(elem, lambda p, t: torch.empty(
-                    (spec.count,) + tuple(t.shape),
-                    dtype=storage_dtype(p, dtype), device=device))
-            dst = layer(stacked, i)
-            tree_map(elem, lambda p, t, _d=dst: _get(_d, p).copy_(t))
-            del elem    # before the next layer's draws
-        stages.append(stacked)
-    params["stages"] = stages
+    if cfg.is_hybrid:
+        params["shared"] = tree_map(
+            B.dense_block_init(generator, cfg, local=False, device=device),
+            lambda p, t: store(("shared",) + p, t))
+    params["stages"] = [
+        _stack(spec.count, lambda _s=spec: _element_init(
+            generator, cfg, _s, device, dtype), dtype, device)
+        for spec in build_stages(cfg)]
     return params
 
 
+def _stack(count: int, draw, dtype: torch.dtype,
+           device: torch.device) -> Any:
+    """``count`` trees from ``draw()`` stacked on a new leading dimension,
+    each stored (in its :func:`storage_dtype` under ``dtype``) as soon as
+    it is drawn and freed before the next draw."""
+    stacked = None
+    for i in range(count):
+        elem = draw()
+        if stacked is None:
+            stacked = tree_map(elem, lambda p, t: torch.empty(
+                (count,) + tuple(t.shape), dtype=storage_dtype(p, dtype),
+                device=device))
+        dst = layer(stacked, i)
+        tree_map(elem, lambda p, t, _d=dst: _get(_d, p).copy_(t))
+        del elem    # before the next draws
+    return stacked
+
+
 def _element_init(generator: torch.Generator, cfg: ArchConfig,
-                  spec: StageSpec, device: torch.device) -> Dict[str, Any]:
+                  spec: StageSpec, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """One element of a ``spec`` stage, drawn in fp32; a zamba element's
+    SSM blocks are stacked as they are drawn, stored under ``dtype``."""
+    if spec.kind == "dense":
+        return B.dense_block_init(generator, cfg, local=spec.local,
+                                  device=device)
+    if spec.kind == "pair":
+        return {"local": B.dense_block_init(generator, cfg, local=True,
+                                            device=device),
+                "global": B.dense_block_init(generator, cfg, local=False,
+                                             device=device)}
     if spec.kind == "ssm":
         return B.ssm_block_init(generator, cfg, device)
-    return B.dense_block_init(generator, cfg, local=spec.local,
-                              device=device)
+    if spec.kind == "zamba":
+        return {"mamba": _stack(spec.inner, lambda: B.ssm_block_init(
+            generator, cfg, device), dtype, device)}
+    raise ValueError(spec.kind)
 
 
 def _get(tree: Any, path: Sequence[str]) -> Any:
@@ -226,25 +268,41 @@ def stage_layers(stage: Any, count: int) -> List[Any]:
 
 
 def element_apply(cfg: ArchConfig, spec: StageSpec, bp: Any, x: torch.Tensor,
-                  positions: torch.Tensor
+                  positions: torch.Tensor, shared: Any = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply ONE stage element (= one Cephalo FSDP unit) to ``x``.
     Returns (y, aux); aux, the MoE router loss, is 0 for dense-MLP and SSM
-    blocks.  MoE layers take the capacity dispatch of training."""
-    if spec.kind == "ssm":
-        y, _ = B.ssm_block_apply(bp, x, cfg)
-        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks.  ``shared`` is the zamba2 shared block's params.  MoE layers
+    take the capacity dispatch of training."""
     if spec.kind == "dense":
         y, a, _ = B.dense_block_apply(bp, x, cfg, positions,
                                       local=spec.local)
         return y, a
-    raise NotImplementedError(f"training through {spec.kind!r} stages: "
-                              "later slice")
+    if spec.kind == "pair":
+        y, a1, _ = B.dense_block_apply(bp["local"], x, cfg, positions,
+                                       local=True)
+        y, a2, _ = B.dense_block_apply(bp["global"], y, cfg, positions,
+                                       local=False)
+        return y, a1 + a2
+    if spec.kind == "ssm":
+        y, _ = B.ssm_block_apply(bp, x, cfg)
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind == "zamba":
+        # nested checkpoint, as the reference's nested remat: without it
+        # the backward of a group keeps every SSM block's intermediates
+        # alive at once
+        for ip in stage_layers(bp["mamba"], spec.inner):
+            x, _ = checkpoint(B.ssm_block_apply, ip, x, cfg,
+                              use_reentrant=False)
+        y, a, _ = B.dense_block_apply(shared, x, cfg, positions,
+                                      local=False)
+        return y, a
+    raise ValueError(spec.kind)
 
 
 def _stage_apply_train(cfg: ArchConfig, spec: StageSpec, stage: Any,
                        x: torch.Tensor, positions: torch.Tensor,
-                       aux: torch.Tensor, remat: str
+                       aux: torch.Tensor, remat: str, shared: Any = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stage's layers in order.  ``remat="full"`` checkpoints each
     layer (its activations are recomputed in the backward, as
@@ -255,9 +313,9 @@ def _stage_apply_train(cfg: ArchConfig, spec: StageSpec, stage: Any,
     for bp in stage_layers(stage, spec.count):
         if remat == "full":
             y, a = checkpoint(element_apply, cfg, spec, bp, x, positions,
-                              use_reentrant=False)
+                              shared, use_reentrant=False)
         else:
-            y, a = element_apply(cfg, spec, bp, x, positions)
+            y, a = element_apply(cfg, spec, bp, x, positions, shared)
         x, aux = y, aux + a
     return x, aux
 
@@ -274,7 +332,8 @@ def forward_hidden(cfg: ArchConfig, params: Dict[str, Any],
     x = embed_tokens(cfg, params, tokens, positions, frontend_embed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, sp in zip(build_stages(cfg), params["stages"]):
-        x, aux = _stage_apply_train(cfg, spec, sp, x, positions, aux, remat)
+        x, aux = _stage_apply_train(cfg, spec, sp, x, positions, aux, remat,
+                                    params.get("shared"))
     return x, aux
 
 
@@ -338,22 +397,63 @@ def _cache_len(cfg: ArchConfig, local: bool, max_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str = "cuda") -> List[Dict]:
     """Empty caches, one entry per stage: ``{"k", "v", "pos"}`` for a dense
-    stage, ``{"h": (L, B, H, P, N) fp32, "conv": (L, B, W-1, conv_dim)}``
-    for an SSM stage."""
+    stage; ``{"local", "global"}`` of those for a pair stage (the local
+    one a ring of ``min(window, max_len)`` slots); ``{"h": (L, B, H, P, N)
+    fp32, "conv": (L, B, W-1, conv_dim)}`` for an SSM stage; and for a
+    zamba stage ``h`` and ``conv`` stacked ``(L, inner, ...)`` beside
+    ``attn``, the KV cache of each application of the shared block."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg)
+
+    def kv(count, local):
+        return KV.init_kv(count, batch, _cache_len(cfg, local, max_len),
+                          cfg.n_kv_heads, cfg.head_dim, dtype, device)
+
+    def ssm(lead):
+        h, conv = B.init_ssm_state(cfg, batch, dtype, device)
+        return {"h": h.expand(lead + h.shape).contiguous(),
+                "conv": conv.expand(lead + conv.shape).contiguous()}
+
     caches: List[Dict] = []
     for spec in build_stages(cfg):
-        if spec.kind == "ssm":
-            h, conv = B.init_ssm_state(cfg, batch, dtype, device)
-            caches.append({
-                "h": h.expand((spec.count,) + h.shape).contiguous(),
-                "conv": conv.expand((spec.count,) + conv.shape).contiguous()})
+        if spec.kind == "dense":
+            caches.append(kv(spec.count, spec.local))
+        elif spec.kind == "pair":
+            caches.append({"local": kv(spec.count, True),
+                           "global": kv(spec.count, False)})
+        elif spec.kind == "ssm":
+            caches.append(ssm((spec.count,)))
         else:
-            caches.append(KV.init_kv(
-                spec.count, batch, _cache_len(cfg, spec.local, max_len),
-                cfg.n_kv_heads, cfg.head_dim, dtype, device))
+            caches.append({**ssm((spec.count, spec.inner)),
+                           "attn": kv(spec.count, False)})
     return caches
+
+
+def _sub_blocks(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict]
+                ) -> Iterator[Tuple[str, Any, Dict, Any]]:
+    """Every block of the model in the order the forward applies them,
+    beside its cache: ``("attn", params, its KV cache, local)`` for an
+    attention block and ``("ssm", params, the SSM caches it indexes, j)``
+    for an SSM block.  A pair is its local then its global layer; a zamba
+    group its ``inner`` SSM blocks, then the shared block with the group's
+    own KV cache."""
+    for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
+        for i in range(spec.count):
+            bp = layer(sp, i)
+            if spec.kind == "dense":
+                yield "attn", bp, layer(cache, i), spec.local
+            elif spec.kind == "pair":
+                yield "attn", bp["local"], layer(cache["local"], i), True
+                yield "attn", bp["global"], layer(cache["global"], i), False
+            elif spec.kind == "ssm":
+                yield "ssm", bp, cache, i
+            elif spec.kind == "zamba":
+                c = layer(cache, i)
+                for j in range(spec.inner):
+                    yield "ssm", layer(bp["mamba"], j), c, j
+                yield "attn", params["shared"], c["attn"], False
+            else:
+                raise ValueError(spec.kind)
 
 
 def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -368,20 +468,22 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
         bsz, seq)
     x = embed_tokens(cfg, params, tokens, positions)
     caches = init_cache(cfg, bsz, max_len, tokens.device)
-    for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
-        if spec.kind == "ssm":
-            for i in range(spec.count):
-                x, (h, conv) = B.ssm_block_apply(layer(sp, i), x, cfg)
-                cache["h"][i].copy_(h)
-                cache["conv"][i].copy_(conv)
-            continue
-        window = B.attn_spec(cfg, spec.local).window
-        for i in range(spec.count):
-            x, _, kv = B.dense_block_apply(layer(sp, i), x, cfg, positions,
-                                           local=spec.local, return_kv=True,
-                                           dropless=True)
-            KV.fill_kv_from_prefill(layer(cache, i), kv[0], kv[1],
-                                    positions, window=window)
+
+    def attend(bp, x, c, local):
+        x, _, kv = B.dense_block_apply(bp, x, cfg, positions, local=local,
+                                       return_kv=True, dropless=True)
+        KV.fill_kv_from_prefill(c, kv[0], kv[1], positions,
+                                window=B.attn_spec(cfg, local).window)
+        return x
+
+    def scan(bp, x, c, j):
+        x, (h, conv) = B.ssm_block_apply(bp, x, cfg)
+        c["h"][j].copy_(h)
+        c["conv"][j].copy_(conv)
+        return x
+
+    for kind, bp, c, arg in _sub_blocks(cfg, params, caches):
+        x = (attend if kind == "attn" else scan)(bp, x, c, arg)
     logits = head_logits(cfg, params, x[:, -1:])
     return logits, caches
 
@@ -395,26 +497,28 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
     ``caches`` in place and returns (logits (B, 1, V) fp32, caches).
     """
     x = embed_tokens(cfg, params, tokens, positions[:, None])
-    for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
-        if spec.kind == "ssm":
-            for i in range(spec.count):
-                c = layer(cache, i)
-                x, (h, conv) = B.ssm_block_apply(
-                    layer(sp, i), x, cfg, state=(c["h"], c["conv"]),
-                    decode=True)
-                c["h"].copy_(h)
-                c["conv"].copy_(conv)
-            continue
-        total = cache["k"].shape[-3]
-        for i in range(spec.count):
-            bp, c = layer(sp, i), layer(cache, i)
-            k_new, v_new = B.decode_project_kv(bp, x, cfg, positions,
-                                               local=spec.local)
-            KV.write_kv(c["k"], c["v"], c["pos"], k_new, v_new, positions,
-                        cache_total=total)
-            x, _, _ = B.dense_block_apply(
-                bp, x, cfg, positions, local=spec.local,
-                kv_cache=(c["k"], c["v"], c["pos"]), dropless=True)
+
+    def attend(bp, x, c, local):
+        # each layer cache's own length: the ring's for a window
+        k_new, v_new = B.decode_project_kv(bp, x, cfg, positions,
+                                           local=local)
+        KV.write_kv(c["k"], c["v"], c["pos"], k_new, v_new, positions,
+                    cache_total=c["k"].shape[-3])
+        x, _, _ = B.dense_block_apply(bp, x, cfg, positions, local=local,
+                                      kv_cache=(c["k"], c["v"], c["pos"]),
+                                      dropless=True)
+        return x
+
+    def step(bp, x, c, j):
+        x, (h, conv) = B.ssm_block_apply(bp, x, cfg,
+                                         state=(c["h"][j], c["conv"][j]),
+                                         decode=True)
+        c["h"][j].copy_(h)
+        c["conv"][j].copy_(conv)
+        return x
+
+    for kind, bp, c, arg in _sub_blocks(cfg, params, caches):
+        x = (attend if kind == "attn" else step)(bp, x, c, arg)
     logits = head_logits(cfg, params, x)
     return logits, caches
 
@@ -447,8 +551,8 @@ class _ParamTree(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """A decoder's parameters (dense, MoE or Mamba2) and its serving entry
-    points.
+    """A decoder's parameters (dense, MoE, Mamba2, gemma2's pairs or the
+    zamba2 hybrid) and its serving entry points.
 
     The parameters keep the JAX package's tree (``embed``, ``final_norm``,
     ``head``, ``stages[i][...]`` stacked on a leading layer dimension) as

@@ -47,6 +47,7 @@ from repro_torch.core.engine import (LoopbackSubstrate, UnitPlanner,
                                      homogeneous_plan, list_schedules)
 from repro_torch.core.partition import Plan, RankPlan
 from repro_torch.data import pipeline
+from repro_torch.models import model as M
 from repro_torch.optim.adam import AdamConfig
 
 import torch_threads  # noqa: F401,E402  (caps torch's threads)
@@ -275,15 +276,15 @@ def test_mamba2_layout_matches_reference(reduced, ratios):
                 sub.slice_flats(flats)[r][name].numpy(), js[name])
 
 
-def _two_loopback_steps(arch, skew=False):
-    """Two loopback steps of reduced ``arch`` on the parity-matrix plan,
-    from the same params, port against reference: losses within 1e-5,
-    exported ``m`` and ``v`` within 1e-4 of their max, collective counts
-    equal.  ``skew`` maps the tokens onto 8 ids, so that MoE routing is
-    skewed and each rank's capacity dispatch drops."""
+def _two_loopback_steps(arch, skew=False, layers=2):
+    """Two loopback steps of reduced ``arch`` (``layers`` layers) on the
+    parity-matrix plan, from the same params, port against reference:
+    losses within 1e-5, exported ``m`` and ``v`` within 1e-4 of their
+    max, collective counts equal.  ``skew`` maps the tokens onto 8 ids, so
+    that MoE routing is skewed and each rank's capacity dispatch drops."""
     plan, jplan = _plans()
-    jcfg = jax_arch(arch).reduced()
-    cfg = get_arch(arch).reduced()
+    jcfg = jax_arch(arch).reduced(n_layers=layers)
+    cfg = get_arch(arch).reduced(n_layers=layers)
     init = jax.device_get(JM.init_params(jcfg, jax.random.PRNGKey(0)))
     stream = pipeline.SyntheticStream(pipeline.DataConfig(
         cfg.vocab_size, SEQ, seed=2))
@@ -336,31 +337,105 @@ def test_moe_engine_matches_reference_loopback(arch):
     assert sum(int(d) for _, d in seen) > 0
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_layout_matches_reference(arch):
-    """An MoE model's uneven FSDP layout (units, the reference's sorted
-    leaf order with ``moe`` in each layer, shapes, shard sizes) at full
-    width and reduced; reduced, the flat buffers and each rank's slice
-    element by element."""
-    ratios = [0.6, 0.4]
+def _layout_matches(arch, ratios, seed):
+    """The uneven FSDP layout of ``arch`` (units in the reference's
+    order, its sorted leaf order, shapes, shard sizes) at full width and
+    reduced; reduced, the flat buffers and each rank's slice element by
+    element.  Returns the unit names at full width."""
+    names = None
     for jcfg, cfg in ((jax_arch(arch), get_arch(arch)),
                       (jax_arch(arch).reduced(), get_arch(arch).reduced())):
         jplanner = JaxPlanner(jcfg, ratios)
         planner = UnitPlanner(cfg, ratios)
         assert [g.name for g in planner.groups] == \
             [g.name for g in jplanner.groups]
+        names = names or [g.name for g in planner.groups]
         for g, jg in zip(planner.groups, jplanner.groups):
             assert (g.count, g.layout.shapes, g.layout.size,
                     g.layout.padded, g.layout.shard_sizes) == \
                 (jg.count, jg.layout.shapes, jg.layout.size,
                  jg.layout.padded, jg.layout.shard_sizes)
-    tree = _filled(jcfg, seed=8)
+    tree = _filled(jcfg, seed=seed)
     jsub, sub = JaxSubstrate(jplanner), LoopbackSubstrate(planner, "cpu")
     flats = sub.flatten_tree(params_from_numpy(tree, "cpu"))
     jflats = jsub.flatten_tree(tree)
+    # a stage of count 1 keeps its count dim in the port: (1, padded)
+    # where the reference has (padded,), the same elements
     for name in jflats:
-        np.testing.assert_array_equal(flats[name].numpy(), jflats[name])
+        np.testing.assert_array_equal(
+            flats[name].numpy().reshape(jflats[name].shape), jflats[name])
     for r, js in enumerate(jsub.slice_flats(jflats)):
         for name in js:
             np.testing.assert_array_equal(
-                sub.slice_flats(flats)[r][name].numpy(), js[name])
+                sub.slice_flats(flats)[r][name].numpy().reshape(
+                    js[name].shape), js[name])
+    return names
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_layout_matches_reference(arch):
+    """An MoE model's uneven FSDP layout (units, the reference's sorted
+    leaf order with ``moe`` in each layer, shapes, shard sizes) at full
+    width and reduced; reduced, the flat buffers and each rank's slice
+    element by element."""
+    _layout_matches(arch, [0.6, 0.4], seed=8)
+
+
+#: unit groups at full width: gemma2 ties its head to the embedding;
+#: zamba2's shared block is a unit of its own, before the stages
+PAIR_HYBRID_UNITS = {
+    "gemma2-9b": ["embed", "misc", "stage0"],
+    "zamba2-7b": ["embed", "head", "misc", "shared", "stage0", "stage1"]}
+
+
+@pytest.mark.parametrize("ratios", [[0.6, 0.4], [0.0, 0.35, 0.15, 0.5]],
+                         ids=["parity", "zero-rank"])
+@pytest.mark.parametrize("arch", list(PAIR_HYBRID_UNITS))
+def test_pair_hybrid_layout_matches_reference(arch, ratios):
+    """gemma2-9b's pair units (the ``global`` leaves before the ``local``
+    ones) and zamba2-7b's (the ``shared`` family; each zamba element's
+    SSM blocks stacked a second time): groups, layouts and, reduced, flat
+    buffers and rank slices element by element against the reference's
+    ``UnitPlanner``."""
+    assert _layout_matches(arch, ratios, seed=9) == PAIR_HYBRID_UNITS[arch]
+
+
+@pytest.mark.parametrize("arch", list(PAIR_HYBRID_UNITS))
+def test_pair_hybrid_engine_matches_reference_loopback(arch):
+    """Two loopback steps of reduced gemma2-9b and zamba2-7b on the
+    parity-matrix plan, from the same params, against the reference's
+    ``HeteroTrainer``: losses within 1e-5, exported ``m`` and ``v`` (the
+    shared block's among them) within 1e-4 of their max, collectives
+    equal.  At 4 layers: 2 pairs, 2 zamba groups (the reference's trainer
+    cannot run a stage of one element, ROADMAP §3)."""
+    _two_loopback_steps(arch, layers=4)
+
+
+@pytest.mark.parametrize("arch", list(PAIR_HYBRID_UNITS))
+def test_single_element_stage_trains(arch):
+    """A stage of one element (reduced gemma2-9b: one pair; zamba2-7b: one
+    group) keeps its count dim through the layout: the engine's first
+    loss equals the reference's ``loss_fn`` over the whole block (Eq. 1
+    weights 1/(B seq)) within 1e-5, and the second is finite and lower."""
+    plan, _ = _plans()
+    jcfg, cfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    assert [s.count for s in M.build_stages(cfg)] == [1]
+    init = jax.device_get(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    eng = build_train_step(cfg, plan, substrate="loopback",
+                           schedule="layered", adam=AdamConfig(lr=1e-3),
+                           seq_len=SEQ, device="cpu")
+    state = eng.import_state({"step": 0,
+                              "p": params_from_numpy(init, "cpu")})
+    gathered = eng.gather_params(state)["stages"][0]
+    assert all(t.shape[0] == 1 for t in fsdp.tree_flatten(gathered)[0])
+    stream = pipeline.SyntheticStream(pipeline.DataConfig(
+        cfg.vocab_size, SEQ, seed=2))
+    big = stream.sample(0, plan.global_batch)
+    b = plan.global_batch
+    want, _ = JM.loss_fn(jcfg, init, {
+        "tokens": big[:, :-1], "labels": big[:, 1:],
+        "weights": np.full((b, SEQ), 1.0 / (b * SEQ), np.float32)})
+    state, loss = eng.step(state, big)
+    assert abs(loss - float(want)) <= 1e-5 * abs(float(want))
+    _, loss2 = eng.step(state, big)
+    assert np.isfinite(loss2) and loss2 < loss

@@ -117,6 +117,32 @@ def test_launcher_plans_mamba2_as_the_reference(extra, capsys, monkeypatch):
     assert cfg.n_layers == 48 and cfg.d_model == 1024
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-7b"])
+def test_launcher_trains_pair_and_hybrid_on_the_reference_plan(arch,
+                                                                capsys):
+    """Reduced gemma2-9b (one local/global pair) and zamba2-7b (one SSM
+    group and the shared block) on Cluster A at batch 32: the plan the
+    launcher prints and solves is the reference's, and its two steps'
+    losses are finite.  (The reference's own trainer cannot run these
+    stages of one element: ROADMAP §3.)"""
+    argv = ["--arch", arch, "--reduced", "--cluster", "cluster-a",
+            "--batch", "32", "--seq", "32", "--steps", "2", "--device",
+            "cpu"]
+    got, steps = _run(launch.main, argv, capsys)
+    jcfg = jax_arch(arch).reduced()
+    jplan = jax_launch.auto_solve(jax_launch.analytic_cluster_model(
+        jax_launch.CLUSTERS["cluster-a"](),
+        jax_launch.build_model_stats(jcfg, 32)), 32)
+    assert jplan.feasible
+    want = jplan.summary().splitlines()
+    assert got[:len(want)] == want
+    args = launch.parser().parse_args(argv)
+    _, plan = launch.solve_plan(args)
+    assert plan.to_json() == jplan.to_json()
+    losses = [float(ln.split()[3]) for ln in steps]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 class _Losses:
     """An engine as ``_train_loop`` sees it, its losses kept."""
 

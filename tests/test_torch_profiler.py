@@ -170,9 +170,9 @@ def test_profile_feeds_the_training_dtype(dtype, monkeypatch):
     seen = []
     real = M.element_apply
 
-    def spy(cfg_, spec, bp, x, pos):
+    def spy(cfg_, spec, bp, x, pos, *shared):
         seen.append((x.dtype, {t.dtype for t in bp["attn"].values()}))
-        return real(cfg_, spec, bp, x, pos)
+        return real(cfg_, spec, bp, x, pos, *shared)
 
     monkeypatch.setattr(M, "element_apply", spy)
     PR.profile_layer_backward(cfg, 16, ms=(1,), repeats=1, device="cpu")
@@ -205,10 +205,20 @@ def test_wallclock_model_is_the_same_for_every_rank(ref):
 
 
 def test_profile_refuses_the_hybrid_shared_block():
-    hybrid = dataclasses.replace(TINY, ssm_state=16, hybrid_attn_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        PR.profile_layer_forward(hybrid, 16, ms=(1,), repeats=1,
-                                 device="cpu")
+    """A hybrid was refused before the port had zamba stages; it is now
+    profiled as the reference profiles it: ``_layer`` gives the first
+    stage's element (its SSM blocks stacked) and the shared block, and
+    both sweeps give finite, positive samples.  CUDA asked for and absent
+    is still refused."""
+    hybrid = get_arch("zamba2-7b").reduced()
+    spec, bp, shared = PR._layer(hybrid, torch.device("cpu"))
+    assert (spec.kind, spec.inner) == ("zamba", 2)
+    assert bp["mamba"]["ssd"]["in_proj"].shape[0] == 2
+    assert set(shared) == {"ln_attn", "attn", "ln_mlp", "mlp"}
+    assert PR._layer(TINY, torch.device("cpu"))[2] is None
+    for fn in (PR.profile_layer_forward, PR.profile_layer_backward):
+        samples = fn(hybrid, 16, ms=(1, 2), repeats=1, device="cpu")
+        assert all(np.isfinite(t) and t > 0 for _, t in samples)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PR.profile_layer_forward(TINY, 16, ms=(1,), repeats=1)

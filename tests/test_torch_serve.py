@@ -44,6 +44,11 @@ SERVE_CASES = [
     ("mamba2-370m", {}, 40),                     # SSM; ragged vs chunk 32
     ("mixtral-8x7b", {}, 16),                    # MoE 4/2 (reduced), SWA
     ("qwen3-moe-30b-a3b", {}, 16),               # MoE 4/2 (reduced), GQA
+    ("gemma2-9b", {}, 16),                       # local/global pair, caps
+    ("gemma2-9b", {"n_layers": 3}, 16),          # a pair, then one global
+    ("zamba2-7b", {}, 40),                       # SSM group + shared block
+    ("zamba2-7b", {"n_layers": 5}, 40),          # 2 groups, then 1 SSM
+    ("yi-34b", {}, 16),                          # dense, rope theta 5e6
 ]
 SERVE_IDS = [f"{a}-{'-'.join(o) or 'base'}" for a, o, _ in SERVE_CASES]
 BATCH, STEPS = 2, 4
@@ -87,20 +92,27 @@ def _close(got, ref, scale, rtol, what):
 
 
 def _close_caches(pc, jc, what):
-    """Every leaf of every stage's cache: integer leaves (positions)
-    exactly, float leaves within 1e-4 of the leaf's max magnitude."""
+    """Every leaf of every stage's cache, down the nested dicts of pair
+    (``local``, ``global``) and zamba (``h``, ``conv``, ``attn``) stages:
+    integer leaves (positions) exactly, float leaves within 1e-4 of the
+    leaf's max magnitude."""
     assert len(pc) == len(jc)
+
+    def walk(p, j, where):
+        if isinstance(j, dict):
+            assert set(p) == set(j), (where, set(p), set(j))
+            for key in j:
+                walk(p[key], j[key], f"{where}.{key}")
+            return
+        ref = np.asarray(j)
+        assert tuple(p.shape) == ref.shape, (where, p.shape, ref.shape)
+        if np.issubdtype(ref.dtype, np.integer):
+            np.testing.assert_array_equal(p.numpy(), ref, err_msg=where)
+        else:
+            _close(p, ref, float(np.abs(ref).max()), 1e-4, where)
+
     for i, (p_stage, j_stage) in enumerate(zip(pc, jc)):
-        assert set(p_stage) == set(j_stage), (set(p_stage), set(j_stage))
-        for key, ref in j_stage.items():
-            ref = np.asarray(ref)
-            got = p_stage[key]
-            assert tuple(got.shape) == ref.shape, (key, got.shape, ref.shape)
-            if np.issubdtype(ref.dtype, np.integer):
-                np.testing.assert_array_equal(got.numpy(), ref)
-            else:
-                _close(got, ref, float(np.abs(ref).max()), 1e-4,
-                       f"{what} cache {i}.{key}")
+        walk(p_stage, j_stage, f"{what} cache {i}")
 
 
 def _prompts(cfg, prompt):
@@ -200,7 +212,7 @@ def test_reduced_configs_identical():
     reduced."""
     for name in ("llama-7b", "gemma-2b", "gpt-1.3b", "stablelm-1.6b",
                  "tiny-llama", "bert-large", "mamba2-370m", "mixtral-8x7b",
-                 "qwen3-moe-30b-a3b"):
+                 "qwen3-moe-30b-a3b", "gemma2-9b", "zamba2-7b", "yi-34b"):
         for size in ("full", "reduced"):
             jc, pc = jax_base.get_arch(name), pt_base.get_arch(name)
             if size == "reduced":
@@ -267,6 +279,36 @@ def test_ssm_model_stores_fp32_leaves():
     assert caches[0]["h"].dtype == torch.float32
     assert caches[0]["conv"].shape == (2, 3, 3, 512 + 2 * 16)
     assert caches[0]["conv"].dtype == torch.bfloat16
+
+
+def test_hybrid_model_stores_fp32_leaves():
+    """A bf16 zamba2 keeps in fp32 the leaves the JAX package keeps in
+    fp32, in the twice-stacked SSM blocks and in the ``shared`` block,
+    from ``init_params`` and from ``params_from_numpy``; the rest is bf16,
+    and the loaded tree keeps the JAX package's values leaf for leaf."""
+    cfg = dataclasses.replace(pt_base.get_arch("zamba2-7b").reduced(),
+                              dtype="bfloat16")
+    model = PM.DecoderLM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    jtree = _perturbed_params(jax_base.get_arch("zamba2-7b").reduced(), 0)
+    loaded = params_from_numpy(jtree, "cpu", dtype=torch.bfloat16)
+    for params in (model.params, loaded):
+        mamba = params["stages"][0]["mamba"]
+        assert mamba["ssd"]["in_proj"].shape[:2] == (1, 2)
+        for path in _SSM_FP32:
+            assert _leaf(mamba, path).dtype == torch.float32, path
+        assert mamba["ssd"]["out_proj"].dtype == torch.bfloat16
+        shared = params["shared"]
+        assert shared["ln_attn"]["scale"].dtype == torch.float32
+        assert shared["attn"]["wq"].dtype == torch.bfloat16
+        assert shared["mlp"]["w_up"].dtype == torch.bfloat16
+    for t, x in zip(tree_flatten(loaded)[0], jax.tree.leaves(jtree)):
+        assert tuple(t.shape) == x.shape
+        if t.dtype == torch.float32:
+            np.testing.assert_array_equal(t.numpy(), x)
+    caches = PM.init_cache(cfg, 3, 10, "cpu")
+    assert set(caches[0]) == {"h", "conv", "attn"}
+    assert caches[0]["h"].shape == (1, 2, 3, 16, 32, 16)
+    assert caches[0]["attn"]["k"].shape == (1, 3, 10, 4, 64)
 
 
 def test_full_width_mamba2_tree():
@@ -339,6 +381,81 @@ def test_sliding_window_ring_buffer_wraparound():
                 ref = JM.head_logits(jcfg, jparams, h[:, -1:])
                 _close(logits, ref, float(jnp.abs(ref).max()), 1e-4,
                        f"decode at {pos}")
+
+
+def test_pair_ring_buffer_wraps_as_the_reference():
+    """gemma2's local cache is a ring past its window: reduced gemma2-9b
+    (window 128, one local/global pair), a prompt of 200 (the prefill's
+    window masks, and the ring holds positions 72..199), then 16 greedy
+    decode steps.  Tokens, logits and every cache leaf against the JAX
+    package's ``prefill``/``decode_step`` at each step (1e-4)."""
+    jcfg, pcfg = _cfgs("gemma2-9b", {})
+    assert pcfg.window == 128
+    tree = _perturbed_params(jcfg, seed=7)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_numpy(tree, "cpu")
+    prompt, steps = 200, 16
+    max_len = prompt + steps
+    toks = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (BATCH, prompt)).astype(np.int32)
+    j_decode = jax.jit(lambda p, c, t, pos: JM.decode_step(jcfg, p, c, t,
+                                                           pos))
+    with torch.inference_mode():
+        jl, jc = JM.prefill(jcfg, jparams, jnp.asarray(toks), max_len)
+        pl, pc = PM.prefill(pcfg, params, torch.from_numpy(toks).long(),
+                            max_len)
+        assert tuple(pc[0]["local"]["k"].shape[1:3]) == (BATCH, 128)
+        assert tuple(pc[0]["global"]["k"].shape[1:3]) == (BATCH, max_len)
+        assert sorted(pc[0]["local"]["pos"][0, 0].tolist()) == \
+            list(range(prompt - 128, prompt))
+        _close(pl, jl, float(jnp.abs(jl).max()), 1e-4, "prefill logits")
+        _close_caches(pc, jc, "prefill")
+        for i in range(steps):
+            jtok = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
+            ptok = pl[:, -1].argmax(-1)[:, None]
+            np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
+            pos = prompt + i
+            jl, jc = j_decode(jparams, jc, jtok,
+                              jnp.full((BATCH,), pos, jnp.int32))
+            pl, pc = PM.decode_step(pcfg, params, pc, ptok,
+                                    torch.full((BATCH,), pos))
+            _close(pl, jl, float(jnp.abs(jl).max()), 1e-4,
+                   f"decode step {i} logits")
+            _close_caches(pc, jc, f"decode step {i}")
+
+
+@pytest.mark.parametrize("arch,count,stages", [
+    ("gemma2-9b", 9_241_705_984, [("pair", 21, 0)]),
+    ("zamba2-7b", 6_751_130_832, [("zamba", 13, 6), ("ssm", 3, 0)]),
+    ("yi-34b", 34_388_917_248, [("dense", 60, 0)])])
+def test_full_width_pair_hybrid_trees(arch, count, stages):
+    """gemma2-9b, zamba2-7b and yi-34b at full width keep the JAX package's
+    parameter count, stages and (reduced) leaf shapes, on the meta device;
+    a zamba stage is stacked twice, its ``shared`` block once, and the SSM
+    blocks' fp32 leaves stay fp32 in a bf16 model."""
+    cfg = pt_base.get_arch(arch)
+    assert [(s.kind, s.count, s.inner) for s in PM.build_stages(cfg)] == \
+        stages
+    params = PM.init_params(cfg, None, "meta")
+    assert PM.param_count(params) == count
+    if arch == "zamba2-7b":
+        ssd = params["stages"][0]["mamba"]["ssd"]
+        assert tuple(ssd["out_proj"].shape) == (13, 6, 7168, 3584)
+        assert ssd["out_proj"].dtype == torch.bfloat16
+        assert ssd["a_log"].dtype == torch.float32
+        assert tuple(params["shared"]["attn"]["wq"].shape) == \
+            (3584, 32, 112)
+    if arch == "gemma2-9b":
+        pair = params["stages"][0]
+        assert set(pair) == {"local", "global"}
+        assert tuple(pair["local"]["attn"]["wq"].shape) == (21, 3584, 16, 256)
+        assert pair["global"]["ln_mlp_post"]["scale"].dtype == torch.float32
+    jcfg, pcfg = _cfgs(arch, {})
+    jshapes = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    small, _ = tree_flatten(PM.init_params(pcfg, None, "meta"))
+    assert [tuple(t.shape) for t in small] == \
+        [x.shape for x in jax.tree.leaves(jshapes)]
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,12 @@ import torch_threads  # noqa: F401,E402  (caps torch's threads)
 #: bert-large: non-causal, layernorm, learned positions; mamba2-370m: SSM
 #: stages (conv, SSD scan, gated norm), no attention; mixtral-8x7b and
 #: qwen3-moe-30b-a3b: MoE (4 experts, top-2 reduced) through the capacity
-#: dispatch with the router aux in the loss, mixtral with its window
+#: dispatch with the router aux in the loss, mixtral with its window;
+#: gemma2-9b: a local/global pair (window 128 reduced), softcaps, post-norms,
+#: tied and scaled embedding; zamba2-7b: an SSM group of 2 and the shared
+#: block, each SSM block checkpointed inside the group's checkpoint
 ARCHS = ["tiny-llama", "gpt-1.3b", "bert-large", "mamba2-370m",
-         "mixtral-8x7b", "qwen3-moe-30b-a3b"]
+         "mixtral-8x7b", "qwen3-moe-30b-a3b", "gemma2-9b", "zamba2-7b"]
 
 
 def _batch(cfg, bsz=2, seq=24, seed=0):
@@ -151,6 +154,55 @@ def test_per_layer_leaves_give_the_stacked_grads():
         for x, y in zip(fsdp.tree_flatten(a)[0], fsdp.tree_flatten(b)[0]):
             np.testing.assert_allclose(x, y, rtol=0,
                                        atol=1e-7 * np.abs(y).max())
+
+
+#: (arch, seq): gemma2's pair past its reduced window of 128, so that the
+#: local layer masks; zamba2's group of SSM blocks and the shared block
+ELEMENT_CASES = [("gemma2-9b", 160), ("zamba2-7b", 40)]
+
+
+@pytest.mark.parametrize("arch,seq", ELEMENT_CASES)
+def test_element_apply_matches_jax(arch, seq):
+    """One stage element (a pair; a zamba group with ``shared``) against
+    the reference's ``element_apply``: y within 1e-4 of max|y|, and the
+    grads of sum(y * w) for a seeded w, by ``jax.vjp``, for x, every leaf
+    of the element and of the shared block, within 1e-4 of each max."""
+    jcfg = jax_arch(arch).reduced()
+    cfg = get_arch(arch).reduced()
+    spec = M.build_stages(cfg)[0]
+    jspec = JM.build_stages(jcfg)[0]
+    assert (spec.kind, spec.inner) == (jspec.kind, jspec.inner)
+    tree = jax.device_get(JM.init_params(jcfg, jax.random.PRNGKey(4)))
+    jbp = jax.tree.map(lambda a: a[0], tree["stages"][0])
+    jshared = tree.get("shared")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, seq, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, seq, cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(seq, dtype=np.int32), (2, 1))
+
+    def jfn(bp, sh, xx):
+        return JM.element_apply(jcfg, jspec, bp, xx, jnp.asarray(pos), sh)[0]
+    jy, vjp = jax.vjp(jfn, jbp, jshared, jnp.asarray(x))
+    jgrads = vjp(jnp.asarray(w))
+
+    bp = params_from_numpy(jbp, "cpu")
+    shared = None if jshared is None else params_from_numpy(jshared, "cpu")
+    tx = torch.from_numpy(x).requires_grad_(True)
+    leaves = fsdp.tree_flatten([bp] + ([shared] if shared else []))[0]
+    for t in leaves:
+        t.requires_grad_(True)
+    y, _ = M.element_apply(cfg, spec, bp, tx, torch.from_numpy(pos).long(),
+                           shared)
+    scale = float(np.abs(np.asarray(jy)).max())
+    assert np.abs(y.detach().numpy() - np.asarray(jy)).max() <= 1e-4 * scale
+    grads = torch.autograd.grad(torch.sum(y * torch.from_numpy(w)),
+                                leaves + [tx])
+    want = jax.tree.leaves(jgrads[:2]) + [jgrads[2]]
+    assert len(grads) == len(want)
+    for g, jg in zip(grads, want):
+        jg = np.asarray(jg)
+        assert g.shape == jg.shape
+        assert np.abs(g.numpy() - jg).max() <= 1e-4 * np.abs(jg).max()
 
 
 def test_learned_positions_and_fp32_storage():
