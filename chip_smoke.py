@@ -29,8 +29,11 @@ Phases, each printing one JSON line:
              ``flex_attention``'s, compiled, with the softcap as its
              score_mod and the window as its block mask, held against the
              plain version; SDPA without the cap, the window as a boolean
-             mask, stands beside it, labelled) and at zamba2-7b's shared
-             block's (8 x 2048, MHA 32/32, D 112);
+             mask, stands beside it, labelled), at zamba2-7b's shared
+             block's (8 x 2048, MHA 32/32, D 112) and at the frontend
+             models' (musicgen-large: 8 x 1500, MHA 32/32, D 64, 1500 no
+             multiple of the tiles; pixtral-12b: 4 x 4096, GQA 32/8, D
+             128);
 4. serve   — ``launch.serve.serve`` on llama-7b at full width (bf16, random
              weights from a seed): batch 8, prompt 512, 32 generated tokens;
              the prefill must launch the bf16 kernel once per layer;
@@ -67,10 +70,21 @@ Phases, each printing one JSON line:
              zamba2-7b at batch 8, prompt 2048, 32 tokens, 81 SSD-scan and
              13 flash launches a prefill; yi-34b at batch 8, prompt 512, 32
              tokens, 60 flash launches;
+6d. serve_musicgen, serve_pixtral — ``launch.serve.serve`` at full width
+             and depth (bf16, random weights from a seed) with the prompt's
+             precomputed frontend embeddings (fp32, from a seeded
+             generator): musicgen-large at 8 x 1500 (30 s of EnCodec
+             frames at 50 Hz), ``frontend_embed`` (8, 1500, 1536), 32
+             tokens, 48 flash launches a prefill; pixtral-12b at 4 x 4096
+             (one 1024 x 1024 image in 16-pixel patches), (4, 4096, 1024),
+             32 tokens, 40 flash launches;
 7. consistency — fp32, TF32 off, full width, for llama-7b, mamba2-370m,
              qwen3-moe-30b-a3b (4 layers: 48 in fp32 need 122 GB),
              gemma2-9b (4 layers, S 4200: the decode step reads a wrapped
-             local ring) and zamba2-7b (6 layers, one group, S 1024):
+             local ring), zamba2-7b (6 layers, one group, S 1024),
+             musicgen-large (full depth, S 1500) and pixtral-12b (4
+             layers, S 4096), the last two with frontend embeddings in
+             both prefills, zero at position S (a decode step takes none):
              the last logits of a prefill of S+1 tokens against a prefill
              of S tokens and one decode step (the kernel path against the
              plain decode path), within 2e-3 of max|logits|; and each model
@@ -145,6 +159,22 @@ Phases, each printing one JSON line:
              predicts (an SSM block's forward three times a rank call);
              for gemma2, then, 4 steps on one batch from the seeded state
              at Adam's lr and at a tenth of it (printed, not a gate);
+11d. train_multiproc — gpt-1.3b at full width and depth on train's
+             two-rank plan (seq 512, ``layered``) through the process fleet
+             (``build_train_step(..., substrate="multiproc")``): two worker
+             processes share the card, each holding its rank's shard and
+             running the kernels, once with the hub topology and once with
+             the ring, on the pipe data plane (MP_TRANSPORT); 1 warm-up step
+             and 2 timed ones.  First the loopback engine takes the same
+             steps from the same generator seed; the fleet's losses and its
+             state after the last step (p, m, v) must equal the loopback's
+             bit for bit (or within the difference of two loopback runs,
+             should they differ), and each step's flash launches, counted
+             inside the workers, must be what the plan and the
+             checkpointing predict, all bf16; step ms, samples/s, the ring's
+             comm seconds, the coordinator's data-plane bytes, each
+             channel's plane, /dev/shm's size, each rank's state and pid,
+             and the card's and the host's most used memory;
 12. profile — the profiler (``core/profiler.py``) on the card: one
              gpt-1.3b layer at seq 512 in bf16, forward and backward, timed
              by CUDA events at m = 1, 2, 3, 4, 6, 8, 12; the piecewise fit
@@ -180,8 +210,8 @@ Then the script's wall time, the card's name and power limit, a line
 ``{"kernels": [...]}`` with each kernel's launches on its main-path run
 (serving for the forwards, phase ``train`` for the flash backward, the
 timed steps of ``plan_train_mamba2`` for the SSD backward; a planned
-step's launches and the MoE, pair and hybrid phases' beside them), its
-error and its times, and last
+step's launches and the MoE, pair, hybrid, frontend and fleet phases'
+beside them), its error and its times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -199,6 +229,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -216,6 +247,8 @@ from repro_torch.core import device_specs  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.core.cost_model import fit_piecewise  # noqa: E402
 from repro_torch.core.engine import build_train_step  # noqa: E402
+from repro_torch.core.engine.schedules import get_schedule  # noqa: E402
+from repro_torch.core.engine.units import UnitPlanner  # noqa: E402
 from repro_torch.core.partition import Plan, RankPlan  # noqa: E402
 from repro_torch.core.planner import auto_solve  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
@@ -383,6 +416,33 @@ PAIR_PREFILL_SHAPES = {
 ZAMBA2_SSD_SHAPE = (8, 112, 2048, 64, 64)     # b, h, l, p, n at its prefill
 # the zamba2 element's profile (printed, not a gate)
 ZAMBA2_PROFILE_MS = (1, 2, 4)
+# the frontend models, served at full width and depth with precomputed
+# frontend embeddings from a seeded generator: musicgen-large at 8 x 1500
+# (30 s of EnCodec frames at 50 Hz; 1500 is no multiple of the flash
+# kernel's tiles), pixtral-12b at 4 x 4096 (one 1024 x 1024 image in
+# 16-pixel patches); the consistency checks in fp32, musicgen at full
+# depth, pixtral on 4 layers, the frontend embedding of the decoded
+# position zero (a decode step takes none)
+MUSICGEN, PIXTRAL = "musicgen-large", "pixtral-12b"
+FRONTEND_SERVE = {MUSICGEN: (8, 1500), PIXTRAL: (4, 4096)}
+FRONTEND_CONSISTENCY = {MUSICGEN: (0, 1500), PIXTRAL: (4, 4096)}
+FRONTEND_PREFILL_SHAPES = {
+    "musicgen-prefill": (8, 32, 32, 1500, 1500, 64, True, 0, 0.0),
+    "pixtral-prefill": (4, 32, 8, 4096, 4096, 128, True, 0, 0.0)}
+# the process fleet: gpt-1.3b at full width and depth on the fixed
+# two-rank plan, one worker process a rank on the one card, hub and ring;
+# 1 warm-up step and MP_STEPS timed ones, against the loopback engine's
+MP_STEPS = 2
+MP_TOPOLOGIES = ("hub", "ring")
+# the fleet's data plane: the pipe.  Shared-memory arenas live in the
+# host's memory (the chip machine's 96 GiB counts /dev/shm): at full
+# width the hub's four arenas hold a full fp32 flat each (22.6 GB) beside
+# the payloads' copies, and the first run on the card with them ran the
+# machine out of memory
+MP_TRANSPORT = "pipe"
+# the machine's memory in use, where its cgroup says (v2, then v1)
+CGROUP_MEM = ("/sys/fs/cgroup/memory.current",
+              "/sys/fs/cgroup/memory/memory.usage_in_bytes")
 
 
 CARD: list = []     # the card's name and power limit (phase device)
@@ -660,6 +720,8 @@ def phase_kernel() -> dict:
            for name, case in MOE_PREFILL_SHAPES.items()}
     pair = {name: _gqa_timing(name, case, errs)
             for name, case in PAIR_PREFILL_SHAPES.items()}
+    frontend = {name: _gqa_timing(name, case, errs)
+                for name, case in FRONTEND_PREFILL_SHAPES.items()}
     res = {"phase": "kernel", "max_abs_err": errs, "sass": sass,
            "shape": SERVE_SHAPE, "dtype": "bfloat16",
            "variant": flash_ops.VARIANTS[dtype], "kernel_ms": kernel_ms,
@@ -667,12 +729,12 @@ def phase_kernel() -> dict:
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
            "kernel_tflops": flops / kernel_ms / 1e9, "moe_shapes": gqa,
-           "pair_hybrid_shapes": pair}
+           "pair_hybrid_shapes": pair, "frontend_shapes": frontend}
     emit(res)
     return {"variant": flash_ops.VARIANTS[dtype], "max_abs_err": serve_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "moe_shapes": gqa,
-            "pair_hybrid_shapes": pair}
+            "pair_hybrid_shapes": pair, "frontend_shapes": frontend}
 
 
 def _gqa_timing(name, case, errs) -> dict:
@@ -868,11 +930,23 @@ def _ssd_timing(shape, errs) -> dict:
             "kernel_tflops": flops / kernel_ms / 1e9}
 
 
+def _frontend(cfg, batch: int, seq: int, device, seed: int):
+    """Precomputed frontend embeddings (batch, seq, frontend_dim), fp32
+    from a seeded generator, for a model with a frontend stub; else
+    None."""
+    if not cfg.frontend_dim:
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, seq, cfg.frontend_dim), generator=gen,
+                       device=device)
+
+
 def phase_serve(arch: str, batch: int, prompt: int, gen: int,
                 phase: str, expect: dict, layers: int = 0) -> dict:
     """Serve ``arch`` at full width (its first ``layers`` layers when
     given); ``expect`` maps each kernel's name to the launches the served
-    run must show."""
+    run must show.  A model with a frontend stub gets the prompt's
+    frontend embeddings (:func:`_frontend`)."""
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -890,13 +964,14 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     init_peak = torch.cuda.max_memory_allocated()
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, prompt))
-    serve(cfg, model, prompts, 2, "cuda")     # warm-up at the same shapes
+    fe = _frontend(cfg, batch, prompt, "cuda", 0)
+    serve(cfg, model, prompts, 2, "cuda", fe)   # warm-up at the same shapes
     torch.cuda.reset_peak_memory_stats()
     for ops in KERNEL_OPS.values():
         ops.LAUNCHES = 0
         ops.VARIANT_LAUNCHES.update(dict.fromkeys(ops.VARIANT_LAUNCHES, 0))
     bwd_before = (ssd_ops.BWD_LAUNCHES, dict(flash_ops.BWD_LAUNCHES))
-    res = serve(cfg, model, prompts, gen, "cuda")
+    res = serve(cfg, model, prompts, gen, "cuda", fe)
     if (ssd_ops.BWD_LAUNCHES, dict(flash_ops.BWD_LAUNCHES)) != bwd_before:
         raise AssertionError(f"{arch}: a serve launched a backward kernel")
     launches = {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
@@ -921,7 +996,9 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
           "of_layers": get_arch(arch).n_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "batch": batch,
-          "prompt": prompt, "gen": gen, "init_s": init_s,
+          "prompt": prompt, "gen": gen,
+          "frontend_embed": None if fe is None else list(fe.shape),
+          "init_s": init_s,
           "init_peak_gib": init_peak / 2**30, "held_before_gib": held / 2**30,
           "params": M.param_count(model.params),
           "prefill_ms": res["prefill_s"] * 1e3,
@@ -929,7 +1006,7 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
           "decode_tok_s": res["decode_tok_s"], "peak_mem_gib": peak / 2**30,
           "kernel_launches": launches, "variants": variants,
           "tokens_seq0": toks[0].tolist()})
-    del model, res
+    del model, res, fe
     torch.cuda.empty_cache()
     return launches
 
@@ -938,7 +1015,9 @@ def phase_consistency(arch: str, batch: int, seq: int,
                       layers: int = 0) -> dict:
     """fp32 at full width (the first ``layers`` layers when given):
     prefill(S+1) against prefill(S) + one decode step; then ``arch``
-    reduced, on the card against the CPU."""
+    reduced, on the card against the CPU.  A model with a frontend stub
+    gets frontend embeddings in both prefills, zero at position S: the
+    decode step takes none."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_arch(arch), dtype="float32")
@@ -948,15 +1027,19 @@ def phase_consistency(arch: str, batch: int, seq: int,
     model = M.DecoderLM.init(cfg, gen, "cuda")
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, seq + 1))).cuda()
+    fe = _frontend(cfg, batch, seq + 1, "cuda", 1)
+    if fe is not None:
+        fe[:, seq] = 0.0
     with torch.inference_mode():
-        full, _ = model.prefill(toks, seq + 1)
-        _, caches = model.prefill(toks[:, :seq], seq + 1)
+        full, _ = model.prefill(toks, seq + 1, fe)
+        _, caches = model.prefill(toks[:, :seq], seq + 1,
+                                  None if fe is None else fe[:, :seq])
         step, _ = model.decode_step(caches, toks[:, seq:],
                                     torch.full((batch,), seq, device="cuda"))
     torch.cuda.synchronize()
     err = (full[:, -1] - step[:, -1]).abs().max().item()
     scale = full[:, -1].abs().max().item()
-    del model, caches
+    del model, caches, fe
     torch.cuda.empty_cache()
     if not (np.isfinite(err) and err <= 2e-3 * scale):
         raise AssertionError(f"{arch} prefill/decode: err {err} > 2e-3 * "
@@ -971,9 +1054,11 @@ def phase_consistency(arch: str, batch: int, seq: int,
     gpu_params = params_from_numpy(tree, "cuda")
     stoks = torch.from_numpy(np.random.default_rng(2).integers(
         0, small.vocab_size, (2, 96)))
+    sfe = _frontend(small, 2, 96, "cpu", 2)
     with torch.inference_mode():
-        ref, _ = M.prefill(small, cpu_params, stoks, 97)
-        got, _ = M.prefill(small, gpu_params, stoks.cuda(), 97)
+        ref, _ = M.prefill(small, cpu_params, stoks, 97, sfe)
+        got, _ = M.prefill(small, gpu_params, stoks.cuda(), 97,
+                           None if sfe is None else sfe.cuda())
     small_err = (got.cpu() - ref).abs().max().item()
     small_scale = ref.abs().max().item()
     if not (np.isfinite(small_err) and small_err <= 1e-4 * small_scale):
@@ -981,6 +1066,7 @@ def phase_consistency(arch: str, batch: int, seq: int,
                              f"{small_err} > 1e-4 * {small_scale}")
     res = {"phase": "consistency", "arch": arch, "dtype": "float32",
            "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "frontend": bool(cfg.frontend_dim),
            "max_abs_err": err, "max_abs_logit": scale, "rel": err / scale,
            "small_cuda_vs_cpu_rel": small_err / small_scale}
     emit(res)
@@ -1701,6 +1787,234 @@ def phase_train(arch: str = TRAIN_ARCH, layers: int = 0,
     return launches
 
 
+class _MemPoll:
+    """The card's used memory (all processes: ``torch.cuda.mem_get_info``)
+    and the host's (the machine's cgroup, where it can be read) polled
+    every 20 ms on a thread while the block runs; ``.max`` and
+    ``.host_max`` are the most seen (``host_max`` None where unread)."""
+
+    def __enter__(self):
+        self.max, self.host_max = 0, None
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.is_set():
+                free, total = torch.cuda.mem_get_info()
+                self.max = max(self.max, total - free)
+                for path in CGROUP_MEM:
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            self.host_max = max(self.host_max or 0,
+                                                int(f.read()))
+                        break
+                self._stop.wait(0.02)
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _progress(what: str, t0: float) -> None:
+    """One line on stderr: how long ``what`` took (a long phase's
+    progress; stdout keeps the JSON lines)."""
+    print(f"chip_smoke: {what}: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+def _mp_steps(engine, blocks, observe=None, label="") -> dict:
+    """1 warm-up step and the timed ones on ``engine`` from its seeded
+    state; returns the state, the losses (warm-up first), the timed
+    steps' ms and ``observe(engine)`` after every step, where given."""
+    t0 = time.perf_counter()
+    state = engine.init_state(torch.Generator(device="cuda").manual_seed(0))
+    _progress(f"{label} init_state", t0)
+    losses, step_ms, seen = [], [], []
+    for i, blk in enumerate(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = engine.step(state, blk)
+        torch.cuda.synchronize()
+        _progress(f"{label} step {i}", t0)
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if observe is not None:
+            seen.append(observe(engine))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return {"state": state, "losses": losses, "step_ms": step_ms,
+            "seen": seen}
+
+
+def _state_diff(a: dict, b: dict) -> float:
+    """max |a - b| over every leaf of the parts (p, m, v) of two exported
+    states.  Raises unless both hold the same parts, each with the same
+    number of leaves (at least one), pairwise of one shape and dtype."""
+    parts = [part for part in ("p", "m", "v") if part in a]
+    if not parts or parts != [part for part in ("p", "m", "v") if part in b]:
+        raise AssertionError(f"state parts differ: {sorted(a)} {sorted(b)}")
+    worst = 0.0
+    for part in parts:
+        xs, ys = fsdp.tree_flatten(a[part])[0], fsdp.tree_flatten(b[part])[0]
+        if not xs or len(xs) != len(ys):
+            raise AssertionError(
+                f"state part {part}: {len(xs)} leaves against {len(ys)}")
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise AssertionError(
+                    f"state part {part} leaf {i}: {tuple(x.shape)} "
+                    f"{x.dtype} against {tuple(y.shape)} {y.dtype}")
+            if not torch.equal(x, y):
+                worst = max(worst, (x - y).abs().max().item())
+    return worst
+
+
+def _loopback_reference(cfg, plan, blocks) -> dict:
+    """The loopback engine's run (:func:`_mp_steps`) with its exported
+    state moved to the host, the card freed after it."""
+    engine = build_train_step(cfg, plan, substrate="loopback",
+                              schedule="layered", seq_len=TRAIN_SEQ)
+    run = _mp_steps(engine, blocks, label="train_multiproc loopback")
+    state = run.pop("state")
+    run["export"] = {k: v if k == "step" else
+                     M.tree_map(v, lambda _, t: t.cpu())
+                     for k, v in engine.export_state(state).items()}
+    del engine, state
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_train_multiproc() -> dict:
+    """gpt-1.3b at full width and depth on the fixed two-rank plan
+    (TRAIN_RANKS, seq 512, ``layered``, blocks of ``SyntheticStream``
+    seed 0) through the process fleet (``substrate="multiproc"``): two
+    worker processes share the card, each holding its rank's shard and
+    running the kernels; 1 warm-up step and MP_STEPS timed ones under
+    each topology.  First the loopback engine takes the same steps from
+    the same generator seed; after each fleet run the fleet's state,
+    gathered part by part as ``export_state`` gathers it, must equal the
+    loopback's bit for bit.  Should it not, the loopback runs a second
+    time: if the two loopback runs differ, their max difference is the
+    bound (printed); if they agree, the fleet's difference fails the
+    phase.  Each timed step's flash launches, reported by the workers,
+    must be what the plan and the checkpointing predict, all bf16."""
+    from repro_torch.core.engine.multiproc import COLLECTIVE_TAGS
+    cfg = get_arch(TRAIN_ARCH)
+    plan = _train_plan(cfg.name)
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, seed=0))
+    blocks = [stream.sample(i, plan.global_batch)
+              for i in range(MP_STEPS + 1)]
+    if torch.cuda.memory_allocated() > 2**30:
+        raise AssertionError("train_multiproc: earlier phases still hold "
+                             f"{torch.cuda.memory_allocated()} B")
+    ref = _loopback_reference(cfg, plan, blocks)
+    want = {n: c * _rank_calls(get_schedule("layered"), plan)
+            for n, c in _train_kernel_calls(cfg).items()}
+    want_variants = {"flash_attention/bf16-mma": want["flash_attention"],
+                     "flash_attention/fp32-fma": 0,
+                     "flash_bwd/bf16-mma": 2 * want["flash_bwd_dq"],
+                     "flash_bwd/fp32-fma": 0}
+    flat_bytes = 4 * sum(g.layout.padded * g.count
+                         for g in UnitPlanner(cfg, [r[3] for r in
+                                                    TRAIN_RANKS]).groups)
+    shm = shutil.disk_usage("/dev/shm") if os.path.isdir("/dev/shm") \
+        else None
+    runs = {}
+    loopback_bound = None
+    for topology in MP_TOPOLOGIES:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        engine = build_train_step(cfg, plan, substrate="multiproc",
+                                  schedule="layered", seq_len=TRAIN_SEQ,
+                                  topology=topology, transport=MP_TRANSPORT)
+        try:
+            start_s = time.perf_counter() - t0
+
+            def observe(eng):
+                return {"launches": dict(eng.last_step_launches),
+                        "compute_s": dict(eng.last_step_walls),
+                        "wall_s": eng.last_step_wall_s,
+                        "comm": {r: dict(c) for r, c in
+                                 eng.last_step_comm.items()},
+                        "coord_bytes": eng.substrate.coordinator_bytes(
+                            COLLECTIVE_TAGS)}
+            _progress(f"train_multiproc {topology} start", t0)
+            with _MemPoll() as mem:
+                run = _mp_steps(engine, blocks, observe,
+                                f"train_multiproc {topology}")
+            for i, seen in enumerate(run["seen"]):
+                got = seen["launches"]
+                bad = {k: (got.get(k, 0), n) for k, n in
+                       {**want, **want_variants}.items()
+                       if got.get(k, 0) != n}
+                if bad:
+                    raise AssertionError(
+                        f"train_multiproc {topology} step {i}: the "
+                        f"workers' launches (got, want) {bad}")
+            state = run.pop("state")
+            planes = engine.transport_planes()
+            report = engine.memory_report(state).splitlines()
+            t0 = time.perf_counter()
+            diff = 0.0
+            for part in ("p", "m", "v"):
+                got = engine.substrate.allgather_params(None, part)
+                diff = max(diff, _state_diff({part: ref["export"][part]},
+                                             {part: got}))
+                del got
+            gather_s = time.perf_counter() - t0
+            _progress(f"train_multiproc {topology} gather", t0)
+        finally:
+            engine.close()
+        del engine
+        if run["losses"] != ref["losses"] or diff > 0.0:
+            if loopback_bound is None:
+                again = _loopback_reference(cfg, plan, blocks)
+                loopback_bound = _state_diff(ref["export"], again["export"])
+                del again
+            if not (loopback_bound > 0.0 and diff <= loopback_bound):
+                raise AssertionError(
+                    f"train_multiproc {topology}: losses {run['losses']} "
+                    f"against the loopback's {ref['losses']}, state max "
+                    f"diff {diff}; two loopback runs differ by "
+                    f"{loopback_bound}")
+        mean_ms = float(np.mean(run["step_ms"]))
+        coord = [seen["coord_bytes"] for seen in run["seen"]]
+        runs[topology] = {
+            "start_s": start_s, "losses": run["losses"],
+            "step_ms": run["step_ms"], "mean_step_ms": mean_ms,
+            "samples_s": plan.global_batch / (mean_ms / 1e3),
+            "state_max_diff": diff, "gather_s": gather_s,
+            "comm_per_step": [seen["comm"] for seen in run["seen"][1:]],
+            "compute_s_per_step": [seen["compute_s"]
+                                   for seen in run["seen"][1:]],
+            "engine_wall_s_per_step": [seen["wall_s"]
+                                       for seen in run["seen"][1:]],
+            "coordinator_bytes_per_step": np.diff(coord).tolist(),
+            "launches_per_step": run["seen"][-1]["launches"],
+            "planes": planes, "memory": report,
+            "card_used_gib_max": mem.max / 2**30,
+            "host_used_gib_max": None if mem.host_max is None
+            else mem.host_max / 2**30}
+    res = {"phase": "train_multiproc", "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": flat_bytes // 4, "seq": TRAIN_SEQ,
+           "global_batch": plan.global_batch, "ranks": TRAIN_RANKS,
+           "schedule": "layered", "transport": MP_TRANSPORT,
+           "flat_bytes": flat_bytes,
+           "dev_shm_bytes": None if shm is None else shm.total,
+           "dev_shm_free": None if shm is None else shm.free,
+           "loopback": {"losses": ref["losses"], "step_ms": ref["step_ms"],
+                        "mean_step_ms": float(np.mean(ref["step_ms"]))},
+           "loopback_bound": loopback_bound,
+           "expected_launches_per_step": {**want, **want_variants},
+           **runs}
+    emit(res)
+    return {t: r["launches_per_step"] for t, r in runs.items()}
+
+
 def _held_out_errors(samples) -> dict:
     """App. A.3: fit on PROFILE_FIT_MS, |relative error| at the rest."""
     t = dict(samples)
@@ -1997,10 +2311,17 @@ def main() -> int:
         "serve_yi34b": phase_serve(
             YI, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_yi34b",
             {"flash_attention": get_arch(YI).n_layers, "ssd_scan": 0})}
+    frontend_launches = {
+        "serve_" + arch.split("-")[0]: phase_serve(
+            arch, batch, prompt, SERVE_GEN, "serve_" + arch.split("-")[0],
+            {"flash_attention": get_arch(arch).n_layers, "ssd_scan": 0})
+        for arch, (batch, prompt) in FRONTEND_SERVE.items()}
     phase_consistency("llama-7b", 2, 256)
     phase_consistency(MAMBA, 2, 1024)
     phase_consistency(QWEN3, 2, 256, layers=QWEN3_CONSISTENCY_LAYERS)
     for arch, (layers, seq) in PAIR_CONSISTENCY.items():
+        phase_consistency(arch, 2, seq, layers=layers)
+    for arch, (layers, seq) in FRONTEND_CONSISTENCY.items():
         phase_consistency(arch, 2, seq, layers=layers)
     bwd = phase_flash_bwd()
     ssd_bwd = phase_ssd_bwd()
@@ -2012,6 +2333,7 @@ def main() -> int:
         phase = "train_" + arch.split("-")[0]
         pair_launches[phase] = phase_train(arch, layers, phase,
                                            TREND_LRS.get(arch, ()))
+    fleet_launches = phase_train_multiproc()
     phase_profile()
     plan_launches = phase_plan_train()
     mamba_launches = phase_plan_train_mamba2()
@@ -2028,6 +2350,10 @@ def main() -> int:
                           for k, v in moe_launches.items()},
          "launches_pair_hybrid": {k: v["flash_attention"]
                                   for k, v in pair_launches.items()},
+         "launches_frontend": {k: v["flash_attention"]
+                               for k, v in frontend_launches.items()},
+         "launches_train_multiproc_step": {
+             k: v["flash_attention"] for k, v in fleet_launches.items()},
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2041,6 +2367,8 @@ def main() -> int:
            "launches_pair_hybrid": {
                k: pair_launches[k][f"flash_bwd_{w}"]
                for k in ("train_gemma2", "train_zamba2")},
+           "launches_train_multiproc_step": {
+               k: v[f"flash_bwd_{w}"] for k, v in fleet_launches.items()},
            **bwd[w]}
           for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",

@@ -25,8 +25,9 @@ save.  ``load`` validates each shard's flat key list and array shapes
 against the manifest and raises :class:`ValueError` on any mismatch, so
 a corrupt or truncated checkpoint can never be silently opened.
 
-Works for the MPMD loopback runtime's per-rank state shards (the SPMD
-path and the process fleet are not ported yet).  Ratio changes between
+Works for the MPMD loopback runtime's per-rank state shards, and for
+the process fleet's state through its exported trees (the launcher
+saves those); the SPMD path is not ported yet.  Ratio changes between
 save and restore go through :func:`reshard` (gather → re-slice) — the
 *offline* analogue of the paper's elastic re-planning when cluster
 composition changes.  The engine surface ``export_state``/``import_state``

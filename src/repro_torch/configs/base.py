@@ -209,5 +209,6 @@ def _ensure_loaded() -> None:
     # import every config module the port has once so registrations run
     from repro_torch.configs import (gemma2_9b, gemma_2b,  # noqa: F401
                                      mamba2_370m, mixtral_8x7b,
-                                     paper_models, qwen3_moe_30b_a3b,
+                                     musicgen_large, paper_models,
+                                     pixtral_12b, qwen3_moe_30b_a3b,
                                      stablelm_1_6b, yi_34b, zamba2_7b)

@@ -1,6 +1,7 @@
 """The execution engine of the port's Cephalo training runtime.
 
-The port of ``repro.core.engine`` (its loopback half):
+The port of ``repro.core.engine`` (its loopback runtime and its process
+fleet):
 
 * :mod:`.units` — **UnitPlanner**: the param→unit grouping and flat
   layouts;
@@ -8,12 +9,20 @@ The port of ``repro.core.engine`` (its loopback half):
   registry (``layered``, ``per_microbatch``, ``interleaved``);
 * :mod:`.substrate` — **LoopbackSubstrate**: the in-process ragged
   AllGatherv / ReduceScatterv;
+* :mod:`.transport`, :mod:`.ring`, :mod:`.verify` — the fleet's wire,
+  its ring collectives and its runtime comm sanitizer;
+* :mod:`.multiproc` — **ProcessEngine**: the MPMD step across real
+  rank processes, hub or ring, and the **WallClockOracle**;
 * :mod:`.api` — ``build_train_step(cfg, plan, schedule=...,
-  substrate="loopback")``, which returns a ``TrainEngine``.
+  substrate="loopback" | "multiproc")``, which returns a
+  ``TrainEngine``.
 """
 
 from repro_torch.core.engine.api import (MpmdEngine, TrainEngine,
                                          build_train_step, homogeneous_plan)
+from repro_torch.core.engine.multiproc import (MultiProcessSubstrate,
+                                               ProcessEngine,
+                                               WallClockOracle)
 from repro_torch.core.engine.schedules import (Schedule, chunked,
                                                get_schedule, list_schedules,
                                                register_schedule)
@@ -24,8 +33,9 @@ from repro_torch.core.engine.units import (UnitGroup, UnitPlanner,
                                            split_params)
 
 __all__ = [
-    "CollectiveSubstrate", "LoopbackSubstrate", "MpmdEngine", "Schedule",
-    "TrainEngine", "UnitGroup", "UnitPlanner", "build_train_step",
+    "CollectiveSubstrate", "LoopbackSubstrate", "MpmdEngine",
+    "MultiProcessSubstrate", "ProcessEngine", "Schedule", "TrainEngine",
+    "UnitGroup", "UnitPlanner", "WallClockOracle", "build_train_step",
     "chunked", "element_tree", "get_schedule", "homogeneous_plan",
     "list_schedules", "merge_params", "register_schedule", "split_params",
 ]

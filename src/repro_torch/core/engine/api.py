@@ -10,9 +10,12 @@ The port of ``repro.core.engine.api``::
 
 ``substrate="loopback"`` (or ``"auto"``) is the MPMD runtime: per-rank
 unpadded ``(ell_i, m_i)`` work and software loopback collectives on one
-device, ``cuda`` unless ``device="cpu"`` is asked for.  The SPMD
-``shard_map`` runtime and the ``multiproc`` process fleet are not ported
-yet (ROADMAP queue 1, items 9 and 10) and raise.
+device, ``cuda`` unless ``device="cpu"`` is asked for.
+``substrate="multiproc"`` runs the same step across a fleet of worker
+processes, one per rank, each on that device
+(:class:`~repro_torch.core.engine.multiproc.ProcessEngine`).  The SPMD
+``shard_map`` runtime is not ported yet (ROADMAP queue 1, item 10) and
+raises.
 """
 
 from __future__ import annotations
@@ -130,13 +133,21 @@ def build_train_step(cfg: ArchConfig, plan: Plan, *,
                      substrate: str = "auto",
                      adam: AdamConfig = AdamConfig(),
                      seq_len: int = 512,
-                     device: torch.device | str = "cuda") -> TrainEngine:
+                     device: torch.device | str = "cuda",
+                     **knobs) -> TrainEngine:
     """Build a train engine for ``(cfg, plan)``.
 
     ``schedule`` — any name in :func:`list_schedules` (or a
     :class:`Schedule`).  ``substrate`` — ``"loopback"`` or ``"auto"``
-    (which means loopback); ``"shard_map"`` and ``"multiproc"`` raise
-    NotImplementedError until their slices land.
+    (which means loopback), or ``"multiproc"``, which takes the
+    reference's knobs ``transport=``, ``topology=`` (``"hub"``/
+    ``"ring"``), ``overlap_rounds=`` (ring only: round *k+1*'s
+    AllGatherv prefetches under round *k*'s compute — same bits, less
+    exposed wire time; default ``$CEPHALO_MP_OVERLAP``),
+    ``ring_timeout=``, ``reply_timeout=``, ``start_method=`` and
+    ``sanitize=`` (the runtime comm sanitizer on every ring worker;
+    default ``$CEPHALO_COMM_SANITIZE``).  ``"shard_map"`` raises
+    NotImplementedError until its slice lands.
     """
     sched = get_schedule(schedule)
     if substrate == "auto":
@@ -146,10 +157,13 @@ def build_train_step(cfg: ArchConfig, plan: Plan, *,
             "substrate 'shard_map' (the SPMD runtime) is not ported yet: "
             "ROADMAP queue 1, item 10")
     if substrate == "multiproc":
-        raise NotImplementedError(
-            "substrate 'multiproc' (the process fleet) is not ported yet: "
-            "ROADMAP queue 1, item 9")
+        from repro_torch.core.engine.multiproc import ProcessEngine
+        return ProcessEngine(cfg, plan, sched, adam, seq_len, device=device,
+                             **knobs)
     if substrate != "loopback":
         raise ValueError(f"unknown substrate {substrate!r}; "
                          f"choose from {SUBSTRATES}")
+    if knobs:
+        raise ValueError(
+            f"loopback substrate takes no extra knobs, got {knobs}")
     return MpmdEngine(cfg, plan, sched, adam, seq_len, device)

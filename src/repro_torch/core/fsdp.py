@@ -29,34 +29,40 @@ QUANTUM = 128
 # Trees of dicts and lists, in jax.tree.flatten's order
 # ---------------------------------------------------------------------------
 
+def _flatten(t: Any, leaves: List[Any]) -> Any:
+    if isinstance(t, dict):
+        return {k: _flatten(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return [_flatten(v, leaves) for v in t]
+    leaves.append(t)
+    return None
+
+
+def _build(d: Any, it) -> Any:
+    if isinstance(d, dict):
+        return {k: _build(d[k], it) for k in sorted(d)}
+    if isinstance(d, list):
+        return [_build(v, it) for v in d]
+    return next(it)
+
+
+# The walks are module functions, not closures that call themselves: a
+# closure that refers to itself is a reference cycle, which keeps every
+# leaf it captured (a step's gradients, a gathered params tree) alive
+# until Python's cyclic collector happens to run.
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
     """(leaves, treedef): dict keys sorted, list entries by index.  The
     treedef is the tree's skeleton (None at every leaf)."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [walk(v) for v in t]
-        leaves.append(t)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _flatten(tree, leaves)
 
 
 def tree_unflatten(treedef: Any, leaves: Sequence[Any]) -> Any:
     """Inverse of :func:`tree_flatten`."""
     it = iter(leaves)
-
-    def build(d):
-        if isinstance(d, dict):
-            return {k: build(d[k]) for k in sorted(d)}
-        if isinstance(d, list):
-            return [build(v) for v in d]
-        return next(it)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

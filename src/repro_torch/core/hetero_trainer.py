@@ -58,6 +58,20 @@ def trainable(params: Dict[str, Any]) -> Tuple[Dict[str, Any],
     return tree, leaves
 
 
+def rank_loss_and_grads(cfg: ArchConfig, params: Dict[str, Any],
+                        leaves: List[torch.Tensor], batch: Dict
+                        ) -> Tuple[float, List[torch.Tensor]]:
+    """One rank call: the loss of ``batch`` and its grads with respect
+    to ``leaves`` (from :func:`trainable`).  The loopback engine and the
+    process fleet's workers both compute through it, so they agree bit
+    for bit.  A leaf the loss does not use (the frontend stub's
+    projection: ranks get no frontend embeddings) has a zero grad, as in
+    the reference."""
+    loss, _ = M.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return float(loss.detach()), list(grads)
+
+
 def _count(stacked: Any) -> int:
     leaves, _ = fsdp.tree_flatten(stacked)
     return leaves[0].shape[0]
@@ -137,16 +151,6 @@ class HeteroTrainer:
                 f"(Σ b_i = {sum(r.b for r in self.plan.ranks)})")
         return out
 
-    def _rank_loss_and_grads(self, params: Dict[str, Any],
-                             leaves: List[torch.Tensor], batch: Dict
-                             ) -> Tuple[float, List[torch.Tensor]]:
-        loss, _ = M.loss_fn(self.cfg, params, batch)
-        # a leaf the loss does not use (the frontend stub's projection:
-        # ranks get no frontend embeddings) has a zero grad, as in the
-        # reference
-        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        return float(loss.detach()), list(grads)
-
     def _round_loss_and_grads(self, full_params: Dict[str, Any], batches,
                               mb_lo: int, mb_hi: int
                               ) -> Tuple[float, Optional[Dict[str, Any]]]:
@@ -167,8 +171,8 @@ class HeteroTrainer:
                 continue
             b = batches[rank]
             rows = slice(lo * r.m, hi * r.m)
-            loss, grads = self._rank_loss_and_grads(
-                params, leaves, {k: t[rows] for k, t in b.items()})
+            loss, grads = rank_loss_and_grads(
+                self.cfg, params, leaves, {k: t[rows] for k, t in b.items()})
             total_loss += loss
             grads_sum = grads if grads_sum is None else \
                 [a + g for a, g in zip(grads_sum, grads)]

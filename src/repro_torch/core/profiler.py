@@ -18,10 +18,11 @@ model stats give exactly.
 
 :func:`refit_cluster_model` is the *online* half of the same machinery:
 per-rank ``(m, seconds)`` telemetry collected mid-training rebuilds the
-cost model through the identical :func:`fit_piecewise` path.  Its caller,
-the elastic runtime, and the process fleet that
-:func:`wallclock_cluster_model` bootstraps are not ported yet (ROADMAP
-queue 1, item 9).
+cost model through the identical :func:`fit_piecewise` path.  Its
+caller, the elastic runtime, is not ported yet (ROADMAP queue 1, item
+9).  :func:`wallclock_cluster_model` bootstraps the planner of the
+process fleet (``launch.train --substrate multiproc``), whose worker
+probes time an element through :func:`layer_call`.
 """
 
 from __future__ import annotations
@@ -66,6 +67,23 @@ def _input(cfg: ArchConfig, m: int, seq: int, device: torch.device):
     return x.to(M.compute_dtype(cfg)), pos
 
 
+def layer_call(cfg: ArchConfig, spec, bp, shared, x: torch.Tensor,
+               pos: torch.Tensor, leaves: List[torch.Tensor] | None = None
+               ) -> Callable[[], object]:
+    """One element's pass as a call: its forward (no graph) when
+    ``leaves`` is None, else its forward and the grads of ``sum(y*y)``
+    with respect to ``leaves``."""
+    if leaves is None:
+        @torch.no_grad()
+        def fn():
+            return M.element_apply(cfg, spec, bp, x, pos, shared)[0]
+    else:
+        def fn():
+            y, _ = M.element_apply(cfg, spec, bp, x, pos, shared)
+            return torch.autograd.grad(torch.sum(y * y), leaves)
+    return fn
+
+
 def _best_seconds(fn: Callable[[], object], device: torch.device,
                   repeats: int) -> float:
     """Minimum over ``repeats`` timed calls of ``fn``, after one warm-up
@@ -99,11 +117,7 @@ def profile_layer_forward(cfg: ArchConfig, seq: int,
     out = []
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
-
-        @torch.no_grad()
-        def fn():
-            return M.element_apply(cfg, spec, bp, x, pos, shared)[0]
-
+        fn = layer_call(cfg, spec, bp, shared, x, pos)
         out.append((m, _best_seconds(fn, device, repeats)))
     return out
 
@@ -125,11 +139,7 @@ def profile_layer_backward(cfg: ArchConfig, seq: int,
     out = []
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
-
-        def fn():
-            y, _ = M.element_apply(cfg, spec, bp, x, pos, shared)
-            return torch.autograd.grad(torch.sum(y * y), leaves)
-
+        fn = layer_call(cfg, spec, bp, shared, x, pos, leaves)
         out.append((m, _best_seconds(fn, device, repeats)))
     return out
 
@@ -174,8 +184,8 @@ def wallclock_cluster_model(cluster, cfg: ArchConfig, seq: int,
     every rank gets the same measured fwd/bwd
     :class:`~repro_torch.core.cost_model.LatencyModel`, memory stays
     analytic and comm comes from the cluster spec.  The bootstrap of a
-    rank fleet whose ranks share one kind of silicon (the reference's
-    multiproc substrate)."""
+    rank fleet whose ranks share one kind of silicon (the multiproc
+    substrate, :mod:`repro_torch.core.engine.multiproc`)."""
     fwd = profile_layer_forward(cfg, seq, ms=ms, repeats=repeats,
                                 device=device)
     bwd = profile_layer_backward(cfg, seq, ms=ms, repeats=repeats,

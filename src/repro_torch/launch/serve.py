@@ -27,9 +27,13 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve(cfg: ArchConfig, model: M.DecoderLM, prompts, gen: int,
-          device: torch.device | str = "cuda") -> Dict[str, object]:
+          device: torch.device | str = "cuda",
+          frontend_embed=None) -> Dict[str, object]:
     """Greedy generation of ``gen`` tokens after the prompts (B, S), an
-    integer array or tensor.
+    integer array or tensor.  A model with a frontend stub (musicgen's
+    audio frames, pixtral's image patches) may take the prompt's
+    precomputed embeddings as ``frontend_embed`` (B, S, frontend_dim), an
+    array or tensor, which the prefill adds; decode steps take none.
 
     Returns ``tokens`` (B, gen) int64 on the host, ``last_logits``
     (B, 1, V) fp32 of the last step, ``prefill_s`` and ``decode_s`` (host
@@ -41,9 +45,12 @@ def serve(cfg: ArchConfig, model: M.DecoderLM, prompts, gen: int,
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=device)
     bsz, plen = prompts.shape
     max_len = plen + gen
+    if frontend_embed is not None:
+        frontend_embed = torch.as_tensor(frontend_embed, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = M.prefill(cfg, model.params, prompts, max_len=max_len)
+    logits, caches = M.prefill(cfg, model.params, prompts, max_len=max_len,
+                               frontend_embed=frontend_embed)
     next_tok = logits[:, -1].argmax(-1)[:, None]
     _sync(device)
     prefill_s = time.perf_counter() - t0

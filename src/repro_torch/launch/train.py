@@ -1,17 +1,24 @@
 """Training launcher: plan a heterogeneous cluster, then train on the plan.
 
-The port of ``repro.launch.train`` for ``--runtime mpmd --substrate
-loopback``: builds the analytic cost model of ``--cluster`` for the model,
-runs the Cephalo planner (``auto_solve``), prints the plan, then trains
-with truly uneven per-rank batches and state shards through
-``build_train_step(..., substrate="loopback")``: every rank of the plan
-runs on the one device, ``cuda`` unless ``--device cpu`` is asked for.
-``--ga-mode`` selects any registered gradient-accumulation schedule.
+The port of ``repro.launch.train`` for ``--runtime mpmd``: builds the
+analytic cost model of ``--cluster`` for the model, runs the Cephalo
+planner (``auto_solve``), prints the plan, then trains with truly uneven
+per-rank batches and state shards through ``build_train_step``: every
+rank of the plan runs on the one device, ``cuda`` unless ``--device
+cpu`` is asked for.  ``--ga-mode`` selects any registered
+gradient-accumulation schedule.
+
+``--substrate multiproc`` runs the ranks as a fleet of worker processes
+(``--nprocs`` sizes it; ``--topology hub|ring``, default
+``$CEPHALO_MP_TOPOLOGY`` or hub; ``--overlap`` pipelines the ring's
+rounds and needs ``--topology ring``).  As in the reference, its planner
+starts from wall-clock latency models measured on the device
+(``profiler.wallclock_cluster_model``), and the memory report names each
+rank's worker pid.
 
 Not ported yet, and refused with the ROADMAP item that ports them:
-``--runtime spmd`` (queue 1, item 10); ``--substrate multiproc``,
-``--topology``, ``--overlap``, ``--elastic`` and ``--straggler`` (queue
-1, item 9).
+``--runtime spmd`` (queue 1, item 10); ``--elastic`` and ``--straggler``
+(queue 1, item 9: the elastic runtime).
 
 Example (CPU, small model)::
 
@@ -22,6 +29,13 @@ gpt-1.3b at full width on the plan for the paper's Cluster A (one card)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \
         --seq 512 --batch 128 --runtime mpmd --cluster cluster-a --steps 3
+
+gpt-1.3b at full width across two worker processes on the card, ring
+topology::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \
+        --seq 512 --batch 16 --substrate multiproc --nprocs 2 \
+        --topology ring --steps 3
 
 mamba2-370m at full width and depth on its Cluster A plan (8 ranks, m 7,
 7, 10, 2, 2, 2, 1, 1; the SSD scan's gradient from its CUDA backward
@@ -50,6 +64,7 @@ from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.core import device_specs as D
 from repro_torch.core.cost_model import analytic_cluster_model
 from repro_torch.core.engine import build_train_step, list_schedules
+from repro_torch.core.engine.transport import resolve_topology
 from repro_torch.core.model_stats import build_model_stats
 from repro_torch.core.partition import Plan
 from repro_torch.core.planner import auto_solve
@@ -64,8 +79,8 @@ CLUSTERS = {
                               link_gbps=50, name="mini"),
 }
 
-_ITEM_9 = ("not ported yet: ROADMAP queue 1, item 9 (process fleet and "
-           "elastic)")
+_ITEM_9 = ("not ported yet: ROADMAP queue 1, item 9 (the elastic "
+           "runtime)")
 _ITEM_10 = "not ported yet: ROADMAP queue 1, item 10 (SPMD runtime)"
 
 
@@ -90,10 +105,12 @@ def _train_loop(engine, args, plan, state=None, on_step=None) -> object:
 
 
 def solve_plan(args) -> Tuple[ArchConfig, Plan]:
-    """The model and its plan: the analytic cost model of ``--cluster``
-    (cycled out to ``--nprocs`` ranks when given), solved by
-    ``auto_solve`` for ``--batch``.  Prints the plan; an infeasible plan
-    exits."""
+    """The model and its plan: the cost model of ``--cluster`` (cycled
+    out to ``--nprocs`` ranks when given), solved by ``auto_solve`` for
+    ``--batch``.  The cost model is analytic, or for ``--substrate
+    multiproc`` measured: the fleet's ranks share the one kind of device,
+    so its single-layer latency, measured there, is the observed truth.
+    Prints the plan; an infeasible plan exits."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -104,7 +121,14 @@ def solve_plan(args) -> Tuple[ArchConfig, Plan]:
         cluster = dataclasses.replace(
             cluster, devices=devices,
             name=f"{cluster.name}x{args.nprocs}")
-    cm = analytic_cluster_model(cluster, build_model_stats(cfg, args.seq))
+    if args.substrate == "multiproc":
+        from repro_torch.core.profiler import wallclock_cluster_model
+        print(f"profiling wall-clock latency models on {args.device} ...")
+        cm = wallclock_cluster_model(cluster, cfg, args.seq,
+                                     device=args.device)
+    else:
+        cm = analytic_cluster_model(cluster,
+                                    build_model_stats(cfg, args.seq))
     plan = auto_solve(cm, args.batch)
     print(plan.summary())
     if not plan.feasible:
@@ -112,12 +136,28 @@ def solve_plan(args) -> Tuple[ArchConfig, Plan]:
     return cfg, plan
 
 
+def _substrate_knobs(args) -> dict:
+    """The multiproc fleet's knobs from the flags (none for loopback):
+    ``--topology`` over ``$CEPHALO_MP_TOPOLOGY`` over hub; ``--overlap``
+    only on the ring."""
+    if args.substrate != "multiproc":
+        return {}
+    knobs = {"topology": resolve_topology(args.topology)}
+    if args.overlap:
+        if knobs["topology"] != "ring":
+            raise SystemExit("--overlap needs --topology ring (the hub "
+                             "data plane has no prefetch lane)")
+        knobs["overlap_rounds"] = True
+    return knobs
+
+
 def build_engine(args, cfg: ArchConfig, plan: Plan):
-    """The loopback MPMD engine for ``plan`` on ``--device``."""
+    """The MPMD engine for ``plan`` on ``--device``: loopback, or the
+    process fleet for ``--substrate multiproc``."""
     return build_train_step(cfg, plan, schedule=args.ga_mode,
-                            substrate="loopback",
+                            substrate=args.substrate,
                             adam=AdamConfig(lr=args.lr), seq_len=args.seq,
-                            device=args.device)
+                            device=args.device, **_substrate_knobs(args))
 
 
 def run_mpmd(args) -> None:
@@ -133,8 +173,18 @@ def run_mpmd(args) -> None:
         state = _train_loop(engine, args, plan, state=state)
         if args.checkpoint:
             from repro_torch.checkpoint import checkpointing as C
-            C.save(args.checkpoint, args.steps, state, {},
-                   meta={"plan": plan.to_json()})
+            if args.substrate == "multiproc":
+                # worker-held shards → the substrate-independent
+                # exported trees, as the reference saves them
+                exported = engine.export_state(state)
+                C.save(args.checkpoint, args.steps,
+                       [{k: exported[k] for k in ("p", "m", "v")}],
+                       {"step": exported["step"]},
+                       meta={"plan": plan.to_json(),
+                             "format": "exported"})
+            else:
+                C.save(args.checkpoint, args.steps, state, {},
+                       meta={"plan": plan.to_json()})
             print(f"saved checkpoint to {args.checkpoint}")
 
 
@@ -154,15 +204,17 @@ def parser() -> argparse.ArgumentParser:
                     choices=list_schedules())
     ap.add_argument("--substrate", default="loopback",
                     choices=("loopback", "multiproc"),
-                    help="mpmd collective substrate: in-process loopback "
-                         "(multiproc is not ported yet)")
+                    help="mpmd collective substrate: in-process loopback, "
+                         "or one worker process per rank")
     ap.add_argument("--nprocs", type=int, default=0,
                     help="size the rank fleet explicitly (cycles the "
                          "--cluster device specs); 0 = cluster size")
     ap.add_argument("--topology", default=None, choices=("hub", "ring"),
-                    help="multiproc collective topology (not ported yet)")
+                    help="multiproc collective topology (default "
+                         "$CEPHALO_MP_TOPOLOGY, else hub)")
     ap.add_argument("--overlap", action="store_true",
-                    help="overlap ring rounds (not ported yet)")
+                    help="multiproc: overlap the ring's collective rounds "
+                         "with compute (needs --topology ring)")
     ap.add_argument("--elastic", action="store_true",
                     help="the replanning runtime (not ported yet)")
     ap.add_argument("--straggler", default="",
@@ -177,14 +229,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser().parse_args(argv)
     if args.runtime == "spmd":
         raise SystemExit(f"--runtime spmd is {_ITEM_10}")
-    for flag, on in (("--substrate multiproc", args.substrate ==
-                      "multiproc"),
-                     ("--topology", args.topology is not None),
-                     ("--overlap", args.overlap),
-                     ("--elastic", args.elastic),
+    for flag, on in (("--elastic", args.elastic),
                      ("--straggler", bool(args.straggler))):
         if on:
             raise SystemExit(f"{flag} is {_ITEM_9}")
+    _substrate_knobs(args)      # a flag error exits before any work
     M.resolve_device(args.device)
     run_mpmd(args)
 

@@ -22,6 +22,8 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if out.is_meta:     # shapes only (a layout): nothing to draw
+        return out
     # trunc_normal_'s bounds are absolute, not in units of std
     return torch.nn.init.trunc_normal_(out, std=std, a=-2.0 * std,
                                        b=2.0 * std, generator=generator)
@@ -31,4 +33,6 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
                device: torch.device | str = "cuda") -> torch.Tensor:
     """Standard normal (std 1.0) embedding table."""
     out = torch.empty((vocab, d), dtype=torch.float32, device=device)
+    if out.is_meta:     # shapes only (a layout): nothing to draw
+        return out
     return torch.nn.init.normal_(out, std=1.0, generator=generator)

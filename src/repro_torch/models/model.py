@@ -457,16 +457,19 @@ def _sub_blocks(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict]
 
 
 def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
+            max_len: int, frontend_embed: torch.Tensor | None = None,
+            ) -> Tuple[torch.Tensor, List[Dict]]:
     """Run the full prompt (B, S), build caches.  Returns (last-token
-    logits (B, 1, V) fp32, caches).  On CUDA tensors, attention goes
-    through the flash attention kernel and the SSM scan through the SSD
-    scan kernel.  MoE layers take the drop-free dispatch, here and in
-    :func:`decode_step`."""
+    logits (B, 1, V) fp32, caches).  A model with a frontend stub takes
+    its precomputed embeddings as ``frontend_embed`` (B, S, frontend_dim),
+    projected and added to the token embeddings.  On CUDA tensors,
+    attention goes through the flash attention kernel and the SSM scan
+    through the SSD scan kernel.  MoE layers take the drop-free dispatch,
+    here and in :func:`decode_step`."""
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
-    x = embed_tokens(cfg, params, tokens, positions)
+    x = embed_tokens(cfg, params, tokens, positions, frontend_embed)
     caches = init_cache(cfg, bsz, max_len, tokens.device)
 
     def attend(bp, x, c, local):
@@ -578,9 +581,11 @@ class DecoderLM(nn.Module):
     def params(self) -> Dict[str, Any]:
         return self.tree.nested
 
-    def prefill(self, tokens: torch.Tensor,
-                max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
-        return prefill(self.cfg, self.params, tokens, max_len)
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                frontend_embed: torch.Tensor | None = None
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+        return prefill(self.cfg, self.params, tokens, max_len,
+                       frontend_embed)
 
     def decode_step(self, caches: List[Dict], tokens: torch.Tensor,
                     positions: torch.Tensor

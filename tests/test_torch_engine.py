@@ -42,9 +42,10 @@ from repro.optim.adam import AdamConfig as JaxAdam
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import fsdp
-from repro_torch.core.engine import (LoopbackSubstrate, UnitPlanner,
-                                     build_train_step, get_schedule,
-                                     homogeneous_plan, list_schedules)
+from repro_torch.core.engine import (LoopbackSubstrate, MultiProcessSubstrate,
+                                     UnitPlanner, build_train_step,
+                                     get_schedule, homogeneous_plan,
+                                     list_schedules)
 from repro_torch.core.partition import Plan, RankPlan
 from repro_torch.data import pipeline
 from repro_torch.models import model as M
@@ -219,13 +220,23 @@ def test_engine_init_state_and_substrates():
         assert not state[0][g.name]["m"].any()
     with pytest.raises(NotImplementedError, match="item 10"):
         build_train_step(cfg, plan, substrate="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_train_step(cfg, plan, substrate="multiproc", device="cpu")
+    # the process fleet refuses a bad knob before it spawns a worker
+    with pytest.raises(ValueError, match="ring"):
+        build_train_step(cfg, plan, substrate="multiproc", device="cpu",
+                         topology="hub", overlap_rounds=True)
+    with pytest.raises(ValueError, match="knobs"):
+        build_train_step(cfg, plan, device="cpu", topology="ring")
     with pytest.raises(ValueError):
         build_train_step(cfg, plan, substrate="nccl", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_train_step(cfg, plan)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_train_step(cfg, plan, substrate="multiproc")
+        # the fleet's coordinator reshards on the card unless asked not
+        # to: it raises before it spawns a worker
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MultiProcessSubstrate(UnitPlanner(cfg, [0.6, 0.4]), [])
 
 
 #: the state ratios of the plan ``launch.train`` solves for mamba2-370m on
@@ -439,3 +450,27 @@ def test_single_element_stage_trains(arch):
     assert abs(loss - float(want)) <= 1e-5 * abs(float(want))
     _, loss2 = eng.step(state, big)
     assert np.isfinite(loss2) and loss2 < loss
+
+
+def test_tree_flatten_makes_no_reference_cycle():
+    """``fsdp.tree_flatten`` and ``tree_unflatten`` hold no leaf past
+    their return: with the cyclic collector off, a flattened tree's
+    tensor is freed as soon as its last reference goes.  Their recursive
+    walks were closures that referred to themselves, a cycle that kept
+    every leaf (a step's gradients, a gathered params tree) alive until
+    the collector ran; a rank process of the fleet ran the card out of
+    memory on them (ROADMAP queue 3)."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        t = torch.ones(4)
+        ref = weakref.ref(t)
+        leaves, treedef = fsdp.tree_flatten({"b": [t, {"c": t}], "a": t})
+        back = fsdp.tree_unflatten(treedef, leaves)
+        assert back["b"][0] is t and len(leaves) == 3
+        del t, leaves, back
+        assert ref() is None
+    finally:
+        gc.enable()

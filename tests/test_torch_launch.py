@@ -8,7 +8,10 @@ against the JAX package's, on the CPU.
   across through numpy), the two launchers' ``_train_loop`` give the same
   losses within 1e-5.
 * The flags whose runtimes are not ported exit with the ROADMAP item
-  that ports them; ``--checkpoint`` writes the reference's layout.
+  that ports them; ``--overlap`` needs ``--topology ring``;
+  ``--checkpoint`` writes the reference's layout.
+* ``--substrate multiproc --nprocs 2 --topology ring`` prints the loss
+  lines of the loopback launcher on the same plan, exactly.
 * ``python -m repro_torch.examples.quickstart --device cpu``: the loss
   falls.
 * The frontend stub (vit-g, vit-e): init params carried from JAX give
@@ -158,7 +161,7 @@ class _Losses:
 def test_train_loops_agree_from_the_same_state(capsys):
     args = argparse.Namespace(arch="tiny-llama", reduced=True, steps=3,
                               batch=12, seq=32, seed=0, cluster="mini",
-                              nprocs=0, device="cpu")
+                              nprocs=0, device="cpu", substrate="loopback")
     cfg, plan = launch.solve_plan(args)
     jcfg = jax_arch("tiny-llama").reduced()
     jcm = jax_launch.analytic_cluster_model(
@@ -187,14 +190,56 @@ def test_train_loops_agree_from_the_same_state(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--runtime", "spmd"], "item 10"),
-    (["--substrate", "multiproc"], "item 9"),
+    (["--substrate", "multiproc", "--elastic"], "item 9"),
     (["--elastic"], "item 9"),
     (["--elastic", "--straggler", "1:3.0@5"], "item 9"),
-    (["--topology", "ring"], "item 9"),
-    (["--overlap"], "item 9")])
+    (["--substrate", "multiproc", "--topology", "ring", "--straggler",
+      "0:2.0@1"], "item 9"),
+    (["--substrate", "multiproc", "--topology", "ring", "--overlap",
+      "--elastic"], "item 9")])
 def test_unported_flags_exit_with_their_roadmap_item(flags, item):
+    """The elastic runtime's flags exit with their item, on the process
+    fleet too, before a worker spawns."""
     with pytest.raises(SystemExit, match=item):
         launch.main(ARGV + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--substrate", "multiproc", "--overlap"],
+    ["--substrate", "multiproc", "--topology", "hub", "--overlap"]])
+def test_overlap_needs_the_ring(flags):
+    with pytest.raises(SystemExit, match="--overlap needs --topology ring"):
+        launch.main(ARGV + ["--device", "cpu"] + flags)
+
+
+def test_multiproc_launcher_prints_the_loopback_losses(capsys,
+                                                       monkeypatch):
+    """``--substrate multiproc --nprocs 2 --topology ring`` on the CPU:
+    the plan comes from wall-clock latency models, so it is caught and
+    the loopback launcher runs on it; both print the same loss lines,
+    exactly, and the fleet's memory report names each worker's pid."""
+    argv = ["--arch", "tiny-llama", "--reduced", "--steps", "2", "--batch",
+            "8", "--seq", "16", "--cluster", "mini", "--device", "cpu"]
+    solved = []
+    solve = launch.solve_plan
+
+    def caught(args):
+        solved.append(solve(args))
+        return solved[-1]
+    monkeypatch.setattr(launch, "solve_plan", caught)
+    launch.main(argv + ["--substrate", "multiproc", "--nprocs", "2",
+                        "--topology", "ring"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("profiling wall-clock latency models on cpu")
+    pids = [ln for ln in out if ln.startswith("rank") and "pid " in ln]
+    assert len(pids) == solved[0][1].n == 2
+    monkeypatch.setattr(launch, "solve_plan", lambda args: solved[0])
+    launch.main(argv)
+    want = capsys.readouterr().out.splitlines()
+
+    def losses(lines):
+        return [ln.split(" (")[0] for ln in lines if ln.startswith("step ")]
+    assert losses(out) == losses(want) and len(losses(out)) == 2
 
 
 def test_launcher_runs_on_cuda_unless_asked():
