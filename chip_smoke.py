@@ -204,14 +204,46 @@ Phases, each printing one JSON line:
              timed ones; finite losses, every rank's shard changed by each
              step, and per step 2 x 48 x 8 SSD forward launches (all
              ``bf16-mma``) and 48 x 8 backward launches (all ``bf16-mma``:
-             the tensor-core backward), no flash launch.
+             the tensor-core backward), no flash launch;
+15. plan_train_elastic — the launcher's elastic path (``solve_plan``,
+             ``elastic_knobs``, ``build_engine``, ``_train_loop``, the
+             argv of ``--elastic --straggler 2:3.0@2``) on gpt-1.3b at
+             full width and depth, Cluster A's plan at batch 128, 6 steps:
+             the cost-model oracle makes rank 2 three times slower from
+             step 2; no event before it, and an adopted replan after the
+             third step that gives rank 2 fewer samples; then rank 7
+             leaves (``on_cluster_change`` onto the survivors' refit
+             models) and one more step.  Each migration's state (p, m, v,
+             step) equal bit for bit across it, its seconds and its card
+             peak; every step's flash launches those of the plan in force,
+             all bf16; finite losses; the step ms under each plan and the
+             replan's seconds by stage;
+16. train_elastic_multiproc — the elastic runtime on the process fleet
+             with wall-clock telemetry: gpt-1.3b at full width on 4 of its
+             24 layers (a replan holds two fleets), two worker processes
+             on a ring (pipe plane, comm sanitizer armed), the plan
+             ``solve_plan`` solves from wall-clock models, batch 16, the
+             ``WallClockOracle``; rank 0's worker three times slower from
+             step 2, until two steps after the first adopted replan (at
+             most 10).  An adopted replan must shed batch off rank
+             0, the refit model rank 0 at least 2x slower than rank 1,
+             each migration bitwise, each step's launches inside the
+             workers the plan in force's, all bf16; a loopback engine that
+             takes the same blocks and migrates at the same steps must end
+             with the fleet's losses and state bit for bit; step ms
+             before and after, respawn and migrate seconds, the events,
+             the card's and the host's most used memory;
+17. verify_protocol — the offline protocol checker's entry point
+             (``repro_torch.core.engine.verify``): the 132-cell grid on both
+             data planes, the determinism lint on the port's data plane,
+             the 5 seeded mutants; it must exit 0.
 
 Then the script's wall time, the card's name and power limit, a line
 ``{"kernels": [...]}`` with each kernel's launches on its main-path run
 (serving for the forwards, phase ``train`` for the flash backward, the
 timed steps of ``plan_train_mamba2`` for the SSD backward; a planned
-step's launches and the MoE, pair, hybrid, frontend and fleet phases'
-beside them), its error and its times, and last
+step's launches and the MoE, pair, hybrid, frontend, fleet and elastic
+phases' beside them), its error and its times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -247,6 +279,9 @@ from repro_torch.core import device_specs  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.core.cost_model import fit_piecewise  # noqa: E402
 from repro_torch.core.engine import build_train_step  # noqa: E402
+from repro_torch.core.engine import elastic  # noqa: E402
+from repro_torch.core.engine import verify  # noqa: E402
+from repro_torch.core.engine.verify import cli as verify_cli  # noqa: E402
 from repro_torch.core.engine.schedules import get_schedule  # noqa: E402
 from repro_torch.core.engine.units import UnitPlanner  # noqa: E402
 from repro_torch.core.partition import Plan, RankPlan  # noqa: E402
@@ -443,6 +478,26 @@ MP_TRANSPORT = "pipe"
 # the machine's memory in use, where its cgroup says (v2, then v1)
 CGROUP_MEM = ("/sys/fs/cgroup/memory.current",
               "/sys/fs/cgroup/memory/memory.usage_in_bytes")
+# the elastic runtime on the launcher's path at full width and depth:
+# plan_train's plan (Cluster A, batch 128), rank 2 (the A6000, the
+# largest batch) three times slower from step 2, 6 steps; then rank 7
+# leaves (the survivors keep their refit models) and one more step
+ELASTIC_ARGS = PLAN_ARGS + ["--elastic", "--straggler", "2:3.0@2",
+                            "--steps", "6"]
+ELASTIC_LEAVER = 7
+# ... and on the process fleet: gpt-1.3b at full width on 4 layers (a
+# replan holds two fleets at once: two at full depth do not fit the
+# card), two worker processes on a ring, the pipe plane, the comm
+# sanitizer armed, the plan from wall-clock models as the launcher
+# solves it, rank 0 three times slower (its worker sleeps) from step 2;
+# it runs until two steps after the first adopted replan, at most --steps
+ELASTIC_MP_LAYERS = 4
+ELASTIC_MP_AFTER = 2
+ELASTIC_MP_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ),
+                   "--batch", "16", "--cluster", "cluster-a",
+                   "--substrate", "multiproc", "--nprocs", "2",
+                   "--topology", "ring", "--elastic", "--straggler",
+                   "0:3.0@2", "--steps", "10"]
 
 
 CARD: list = []     # the card's name and power limit (phase device)
@@ -1172,9 +1227,10 @@ def _bwd_bound(case, dtype, which: str):
     return _least_ms(nbytes, flops, dtype)
 
 
-def _device_ms_by_name(fn, iters: int) -> dict:
+def _device_ms_by_name(fn, iters: int, counts=None) -> dict:
     """Device ms per call of every kernel ``fn`` launches, by name, from
-    ``torch.profiler`` over ``iters`` calls (after one more)."""
+    ``torch.profiler`` over ``iters`` calls (after one more); ``counts``,
+    where given, receives each name's number of recorded launches."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -1187,18 +1243,31 @@ def _device_ms_by_name(fn, iters: int) -> dict:
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             out[evt.name] = out.get(evt.name, 0.0) + \
                 evt.time_range.elapsed_us() / 1e3 / iters
+            if counts is not None:
+                counts[evt.name] = counts.get(evt.name, 0) + 1
     return out
 
 
-def _kernel_ms_by_name(fn, iters: int, marks) -> dict:
-    """Device ms per call of the kernels whose name holds each of
-    ``marks``, from ``torch.profiler`` over ``iters`` calls of ``fn``."""
-    by_name = _device_ms_by_name(fn, iters)
-    out = {mark: sum(ms for name, ms in by_name.items() if mark in name)
-           for mark in marks}
-    if not all(out.values()):
-        raise AssertionError(f"the profiler saw no time for {out}")
-    return out
+def _kernel_ms_by_name(fn, iters: int, marks, tries: int = 3) -> dict:
+    """Device ms a launch of the kernels whose name holds each of
+    ``marks`` (each launched once a call of ``fn``): the mean over the
+    launches ``torch.profiler`` recorded in ``iters`` calls.  A trace does
+    not always hold every launch (on the card one held none of the dq
+    kernel's, another 19 of 20): a trace without a launch of some mark is
+    taken again, at most ``tries`` times in all."""
+    for _ in range(tries):
+        counts: dict = {}
+        by_name = _device_ms_by_name(fn, iters, counts)
+        seen = {mark: sum(n for name, n in counts.items() if mark in name)
+                for mark in marks}
+        if all(seen.values()):
+            return {mark: sum(ms for name, ms in by_name.items()
+                              if mark in name) * iters / seen[mark]
+                    for mark in marks}
+        print(f"chip_smoke: incomplete profiler trace, launches {seen} "
+              f"over {iters} calls", file=sys.stderr, flush=True)
+    raise AssertionError(f"the profiler saw {seen} launches of {marks} "
+                         f"over {iters} calls")
 
 
 def phase_flash_bwd() -> dict:
@@ -2140,7 +2209,7 @@ def _launcher_engine(args):
     captured."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        cfg, plan = train_launch.solve_plan(args)
+        cfg, plan, _ = train_launch.solve_plan(args)
     return (train_launch.build_engine(args, cfg, plan), plan,
             out.getvalue().splitlines())
 
@@ -2271,6 +2340,440 @@ def phase_plan_train_mamba2() -> dict:
     return res["launches_per_step"]
 
 
+def _state_step(state) -> int:
+    """The step counter of an engine's state: a fleet's ``{"step": n}``
+    or the loopback's per-rank shards."""
+    return int(state["step"] if isinstance(state, dict)
+               else state[0]["step"])
+
+
+def _gather_part(engine, state, part: str):
+    """One part (p, m or v) of ``engine``'s state gathered into the
+    model's tree, as ``export_state`` gathers it."""
+    if hasattr(engine, "trainer"):
+        return engine.trainer.substrate.allgather_params(state, part)
+    return engine.substrate.allgather_params(None, part)
+
+
+@contextlib.contextmanager
+def _checked_migrations(record: list):
+    """While the block runs, every ``elastic.migrate_state`` (each
+    replan's and each cluster change's) is timed, its card peak read
+    (``max_memory_allocated`` from the export to the end of the import),
+    and the new engine's state, gathered part by part, held against the
+    old engine's export bit for bit, step counter included; each
+    migration's record is appended to ``record``."""
+    real = elastic.migrate_state
+
+    def checked(src, state, dst):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        exported = src.export_state(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new = dst.import_state(exported)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        diff = 0.0
+        for part in ("p", "m", "v"):
+            got = _gather_part(dst, new, part)
+            diff = max(diff, _state_diff({part: exported[part]},
+                                         {part: got}))
+            del got
+        steps = (int(exported["step"]), _state_step(new))
+        if diff != 0.0 or steps[0] != steps[1]:
+            raise AssertionError(f"migration {len(record)}: state max "
+                                 f"diff {diff}, step {steps}")
+        record.append({"ranks": [src.plan.n, dst.plan.n],
+                       "step": steps[0], "export_s": t1 - t0,
+                       "import_s": t2 - t1,
+                       "check_s": time.perf_counter() - t2,
+                       "allocated_before_gib": before / 2**30,
+                       "peak_gib": peak / 2**30, "max_diff": diff})
+        return new
+
+    elastic.migrate_state = checked
+    try:
+        yield record
+    finally:
+        elastic.migrate_state = real
+
+
+def _plan_index(plans: list, plan: Plan) -> int:
+    """``plan``'s index among the plans seen so far (appended if new)."""
+    for i, seen in enumerate(plans):
+        if seen is plan:
+            return i
+    plans.append(plan)
+    return len(plans) - 1
+
+
+def _event(ev) -> dict:
+    return {"step": ev.step, "adopted": ev.adopted, "reason": ev.reason,
+            "observed_layer_ms": ev.observed_layer_s * 1e3,
+            "old_predicted_layer_ms": ev.old_predicted_layer_s * 1e3,
+            "new_predicted_layer_ms": ev.new_predicted_layer_s * 1e3,
+            "seconds": ev.seconds,
+            "old_b": [r.b for r in ev.old_plan.ranks] if ev.old_plan
+            else None,
+            "new_b": [r.b for r in ev.new_plan.ranks] if ev.new_plan
+            else None}
+
+
+def _per_plan_ms(records: list) -> dict:
+    """Each plan's mean step ms, over its steps that neither warm up nor
+    replan (``None`` where it has none), beside every step's ms."""
+    out = {}
+    for rec in records:
+        got = out.setdefault(f"plan{rec['plan']}",
+                             {"step_ms": [], "clean": []})
+        got["step_ms"].append(rec["ms"])
+        if not rec["warmup"] and not rec["events"]:
+            got["clean"].append(rec["ms"])
+    for got in out.values():
+        clean = got.pop("clean")
+        got["mean_step_ms"] = float(np.mean(clean)) if clean else None
+    return out
+
+
+class _ElasticSteps:
+    """The elastic engine as the launcher's loop sees it: each step timed
+    (host clock around work that ends in a device synchronise, its
+    replan included), and its launches checked against the plan in
+    force when it ran (:func:`_check_train_launches`: the rank calls
+    that plan makes, all bf16)."""
+
+    def __init__(self, engine, phase: str):
+        self.engine, self.cfg, self.phase = engine, engine.cfg, phase
+        self.plans = [engine.plan]
+        self.records = []
+
+    def step(self, state, big):
+        plan = self.engine.plan
+        events = len(self.engine.events)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = self.engine.step(state, big)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        calls = _rank_calls(self.engine.schedule, plan)
+        launches = _check_train_launches(
+            f"{self.phase} step {len(self.records)}", self.cfg, calls)
+        self.records.append({
+            "step": len(self.records), "plan": _plan_index(self.plans, plan),
+            "warmup": not self.records,
+            "ranks": plan.n, "rank_calls": calls, "ms": ms, "loss": loss,
+            "events": len(self.engine.events) - events,
+            "launches": launches})
+        return state, loss
+
+
+def phase_plan_train_elastic() -> dict:
+    """The launcher's elastic path (``solve_plan``, ``elastic_knobs``,
+    ``build_engine``, ``_train_loop``) on gpt-1.3b at full width and
+    depth: Cluster A's plan at batch 128, rank 2 three times slower from
+    step 2 (the cost-model oracle), 6 steps; then rank 7 leaves
+    (``on_cluster_change`` onto the survivors' refit models) and one more
+    step.  Fails unless the first event is an adopted replan after the
+    third step that gives rank 2 fewer samples, no event comes before it,
+    each migration leaves the state equal bit for bit, every step
+    launches the plan in force's bf16 kernels, and the losses are
+    finite."""
+    args = train_launch.parser().parse_args(ELASTIC_ARGS)
+    if torch.cuda.memory_allocated() > 2**30:
+        raise AssertionError("plan_train_elastic: earlier phases still "
+                             f"hold {torch.cuda.memory_allocated()} B")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cfg, plan0, cm = train_launch.solve_plan(args)
+        knobs, on_step = train_launch.elastic_knobs(args, cm)
+    engine = train_launch.build_engine(args, cfg, plan0, **knobs)
+    timed = _ElasticSteps(engine, "plan_train_elastic")
+    migrations = []
+    t0 = time.perf_counter()
+    state = engine.init_state(
+        torch.Generator(args.device).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with _checked_migrations(migrations), \
+            contextlib.redirect_stdout(printed):
+        state = train_launch._train_loop(timed, args, plan0, state=state,
+                                         on_step=on_step)
+        cluster = train_launch.CLUSTERS[args.cluster]()
+        survivors = [i for i in range(cluster.n) if i != ELASTIC_LEAVER]
+        cluster = dataclasses.replace(
+            cluster, devices=[cluster.devices[i] for i in survivors],
+            name=f"{cluster.name}-without-rank{ELASTIC_LEAVER}")
+        fresh = train_launch.analytic_cluster_model(
+            cluster, train_launch.build_model_stats(cfg, args.seq))
+        cm7 = dataclasses.replace(
+            engine.cm, cluster=cluster, comm=fresh.comm,
+            per_rank=[engine.cm.per_rank[i] for i in survivors])
+        state = engine.on_cluster_change(cm7, state)
+        stream = SyntheticStream(DataConfig(cfg.vocab_size, args.seq,
+                                            seed=args.seed))
+        state, _ = timed.step(state, stream.sample(args.steps,
+                                                   plan0.global_batch))
+    events = engine.events
+    first = events[0] if events else None
+    if not (first is not None and first.step == 3 and first.adopted
+            and first.new_plan.ranks[2].b < plan0.ranks[2].b):
+        raise AssertionError(f"plan_train_elastic: events "
+                             f"{[_event(e) for e in events]}")
+    if events[-1].reason != "cluster change" or engine.plan.n != 7 or \
+            len(migrations) != sum(e.adopted for e in events):
+        raise AssertionError(f"plan_train_elastic: cluster change "
+                             f"{_event(events[-1])}, {len(migrations)} "
+                             f"migrations")
+    losses = [r["loss"] for r in timed.records]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"plan_train_elastic: losses {losses}")
+    by_plan = {}
+    for r in timed.records:
+        by_plan.setdefault(f"plan{r['plan']}", r["launches"])
+    if by_plan["plan0"] == by_plan[f"plan{len(timed.plans) - 1}"]:
+        raise AssertionError(f"plan_train_elastic: the same launches "
+                             f"under the first and the last plan "
+                             f"{by_plan}")
+    res = {"phase": "plan_train_elastic", "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "seq": args.seq, "global_batch": plan0.global_batch,
+           "argv": ELASTIC_ARGS, "init_s": init_s,
+           "plans": [[(r.device, r.m, r.ell, round(r.state_ratio, 4))
+                      for r in p.ranks] for p in timed.plans],
+           "rank_calls": [_rank_calls(engine.schedule, p)
+                          for p in timed.plans],
+           "events": [_event(e) for e in events],
+           "migrations": migrations,
+           "steps": [{k: v for k, v in r.items() if k != "launches"}
+                     for r in timed.records],
+           "per_plan": _per_plan_ms(timed.records),
+           "launches_per_step": by_plan,
+           "printed": [ln for ln in printed.getvalue().splitlines()
+                       if not ln.startswith(("  rank", "Plan["))]}
+    del engine, timed, state
+    torch.cuda.empty_cache()
+    emit(res)
+    return by_plan
+
+
+def _elastic_replay(cfg, args, plan0, events, blocks) -> dict:
+    """A loopback engine on ``plan0`` from the fleet's seed, migrated
+    after each adopted event's step to its new plan (as the fleet was):
+    the losses and the final state on the host."""
+    mk = dict(substrate="loopback", schedule=args.ga_mode,
+              adam=AdamConfig(lr=args.lr), seq_len=args.seq,
+              device=args.device)
+    engine = build_train_step(cfg, plan0, **mk)
+    state = engine.init_state(
+        torch.Generator(args.device).manual_seed(args.seed))
+    moves = {ev.step: ev.new_plan for ev in events if ev.adopted}
+    losses = []
+    for i, blk in enumerate(blocks):
+        state, loss = engine.step(state, blk)
+        losses.append(loss)
+        if i + 1 in moves:
+            new = build_train_step(cfg, moves[i + 1], **mk)
+            state = elastic.migrate_state(engine, state, new)
+            engine = new
+    export = {k: v if k == "step" else M.tree_map(v, lambda _, t: t.cpu())
+              for k, v in engine.export_state(state).items()}
+    del engine, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "export": export}
+
+
+def phase_train_elastic_multiproc() -> dict:
+    """The elastic runtime on the process fleet with wall-clock telemetry:
+    gpt-1.3b at full width on ELASTIC_MP_LAYERS layers, two worker
+    processes on a ring (pipe plane, comm sanitizer armed), the plan
+    ``launch.train.solve_plan`` solves from wall-clock models and the
+    ``WallClockOracle`` of ``elastic_knobs``; rank 0 three times slower
+    (its worker sleeps) from step 2, until ELASTIC_MP_AFTER steps after the
+    first adopted replan (at most ``--steps``).  Fails unless an adopted
+    replan sheds batch off rank 0, the refit models rank 0 at least 2x
+    slower than rank 1, each migration leaves the state equal bit for
+    bit, each step's worker launches are the plan in force's, all bf16,
+    and a loopback engine that takes the same blocks and migrates at the
+    same steps ends with the fleet's losses and state, bit for bit."""
+    args = train_launch.parser().parse_args(ELASTIC_MP_ARGS)
+    if torch.cuda.memory_allocated() > 2**30:
+        raise AssertionError("train_elastic_multiproc: earlier phases "
+                             f"still hold {torch.cuda.memory_allocated()}"
+                             " B")
+    cfg = dataclasses.replace(get_arch(args.arch),
+                              n_layers=ELASTIC_MP_LAYERS)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cfg, plan0, cm = train_launch.solve_plan(args, cfg)
+        knobs, on_step = train_launch.elastic_knobs(args, cm)
+    profile_s = time.perf_counter() - t0
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, args.seq,
+                                        seed=args.seed))
+    blocks = [stream.sample(i, plan0.global_batch)
+              for i in range(args.steps)]
+    per_call = _train_kernel_calls(cfg)
+    plans, records, migrations, prev = [plan0], [], [], None
+    with _MemPoll() as mem, _checked_migrations(migrations):
+        t0 = time.perf_counter()
+        engine = build_train_step(
+            cfg, plan0, schedule=args.ga_mode, substrate="multiproc",
+            adam=AdamConfig(lr=args.lr), seq_len=args.seq,
+            device=args.device, topology="ring", transport=MP_TRANSPORT,
+            sanitize=True, **knobs)
+        try:
+            start_s = time.perf_counter() - t0
+            _progress("train_elastic_multiproc start", t0)
+            state = engine.init_state(
+                torch.Generator(args.device).manual_seed(args.seed))
+            adopted_at = None
+            for i, blk in enumerate(blocks):
+                if adopted_at is not None and \
+                        i - adopted_at >= ELASTIC_MP_AFTER:
+                    break
+                with contextlib.redirect_stdout(printed):
+                    on_step(i)
+                inner, plan = engine.engine, engine.plan
+                n_events = len(engine.events)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = engine.step(state, blk)
+                torch.cuda.synchronize()
+                _progress(f"train_elastic_multiproc step {i}", t0)
+                calls = _rank_calls(engine.schedule, plan)
+                want = {n: c * calls for n, c in per_call.items()}
+                want.update({
+                    "flash_attention/bf16-mma": want["flash_attention"],
+                    "flash_attention/fp32-fma": 0,
+                    "flash_bwd/bf16-mma": 2 * want["flash_bwd_dq"],
+                    "flash_bwd/fp32-fma": 0})
+                got = dict(inner.last_step_launches)
+                bad = {k: (got.get(k, 0), n) for k, n in want.items()
+                       if got.get(k, 0) != n}
+                if bad:
+                    raise AssertionError(
+                        f"train_elastic_multiproc step {i}: the workers' "
+                        f"launches (got, want) {bad}")
+                records.append({
+                    "step": i, "plan": _plan_index(plans, plan),
+                    # a fleet's first step warms its workers up
+                    "warmup": inner is not prev,
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": loss, "events": len(engine.events) - n_events,
+                    "worker_compute_s": dict(inner.last_step_walls),
+                    "samples": {r: list(v) for r, v in
+                                inner.last_step_samples.items()},
+                    "launches": {k: got.get(k, 0) for k in want}})
+                prev = inner
+                if adopted_at is None and any(
+                        e.adopted for e in engine.events):
+                    adopted_at = i + 1
+            _plan_index(plans, engine.plan)
+            final = {"step": _state_step(state), **{
+                part: M.tree_map(engine.engine.substrate.allgather_params(
+                    None, part), lambda _, t: t.cpu())
+                for part in ("p", "m", "v")}}
+            planes = engine.engine.transport_planes()
+            cm_end = engine.cm
+        finally:
+            engine.close()
+    events = engine.events
+    adopted = [e for e in events if e.adopted]
+    if not adopted or not \
+            adopted[0].new_plan.ranks[0].b < plan0.ranks[0].b:
+        raise AssertionError(f"train_elastic_multiproc: no adopted replan "
+                             f"that sheds rank 0: "
+                             f"{[_event(e) for e in events]}")
+    slow, fast = (cm_end.per_rank[r].t_fwd.one(1) for r in (0, 1))
+    if not slow > 2.0 * fast:
+        raise AssertionError(f"train_elastic_multiproc: refit t_fwd(1) "
+                             f"rank 0 {slow}, rank 1 {fast}")
+    if len(migrations) != len(adopted):
+        raise AssertionError(f"train_elastic_multiproc: {len(migrations)}"
+                             f" migrations, {len(adopted)} adopted")
+    losses = [r["loss"] for r in records]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_elastic_multiproc: losses {losses}")
+    t0 = time.perf_counter()
+    blocks = blocks[:len(records)]
+    replay = _elastic_replay(cfg, args, plan0, events, blocks)
+    replay_s = time.perf_counter() - t0
+    diff = _state_diff(replay["export"], final)
+    bound = None
+    if replay["losses"] != losses or diff > 0.0 or \
+            replay["export"]["step"] != final["step"]:
+        again = _elastic_replay(cfg, args, plan0, events, blocks)
+        bound = _state_diff(replay["export"], again["export"])
+        del again
+        if not (bound > 0.0 and diff <= bound):
+            raise AssertionError(
+                f"train_elastic_multiproc: losses {losses} against the "
+                f"loopback replay's {replay['losses']}, state max diff "
+                f"{diff}; two replays differ by {bound}")
+    by_plan = {}
+    for r in records:
+        by_plan.setdefault(f"plan{r['plan']}", r["launches"])
+    res = {"phase": "train_elastic_multiproc", "arch": cfg.name,
+           "layers": cfg.n_layers, "of_layers": get_arch(args.arch).n_layers,
+           "d_model": cfg.d_model, "seq": args.seq,
+           "global_batch": plan0.global_batch, "argv": ELASTIC_MP_ARGS,
+           "transport": MP_TRANSPORT, "sanitize": True,
+           "profile_s": profile_s, "start_s": start_s,
+           "plans": [[(r.device, r.m, r.ell, round(r.state_ratio, 4))
+                      for r in p.ranks] for p in plans],
+           "events": [_event(e) for e in events],
+           "migrations": migrations,
+           "refit_t_fwd_1_ms": [slow * 1e3, fast * 1e3],
+           "steps": [{k: v for k, v in r.items() if k != "launches"}
+                     for r in records],
+           "per_plan": _per_plan_ms(records),
+           "replay_losses": replay["losses"], "replay_s": replay_s,
+           "state_max_diff": diff, "loopback_bound": bound,
+           "launches_per_step": by_plan, "planes": planes,
+           "card_used_gib_max": mem.max / 2**30,
+           "host_used_gib_max": None if mem.host_max is None
+           else mem.host_max / 2**30,
+           "printed": [ln for ln in printed.getvalue().splitlines()
+                       if not ln.startswith(("  rank", "Plan["))]}
+    emit(res)
+    return by_plan
+
+
+def phase_verify_protocol() -> dict:
+    """The offline protocol checker's entry point (``python -m
+    repro_torch.core.engine.verify``, run here on the machine's host):
+    the 132-cell grid on both data planes, the determinism lint on the
+    port's data plane, the seeded mutants.  Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = verify_cli.main([])
+    seconds = time.perf_counter() - t0
+    grid = verify.verify_grid()
+    planes = {}
+    for r in grid.reports:
+        for p in r.planes:
+            planes[p.plane] = planes.get(p.plane, 0) + int(p.ok)
+    findings = verify.lint_determinism()
+    mutants = verify.run_mutation_harness()
+    res = {"phase": "verify_protocol", "rc": rc, "seconds": seconds,
+           "grid_cells": len(grid.reports), "checked": grid.checked,
+           "rejected_by_construction": grid.rejected,
+           "cells_ok_per_plane": planes, "lint_findings": len(findings),
+           "mutants": len(mutants.results),
+           "mutants_caught": sum(r.detected for r in mutants.results),
+           "printed": out.getvalue().splitlines()[-4:]}
+    if rc != 0 or not grid.ok or findings or not mutants.ok:
+        raise AssertionError(f"verify_protocol: {res}")
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2337,6 +2840,9 @@ def main() -> int:
     phase_profile()
     plan_launches = phase_plan_train()
     mamba_launches = phase_plan_train_mamba2()
+    elastic_launches = phase_plan_train_elastic()
+    elastic_mp_launches = phase_train_elastic_multiproc()
+    phase_verify_protocol()
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
@@ -2354,6 +2860,11 @@ def main() -> int:
                                for k, v in frontend_launches.items()},
          "launches_train_multiproc_step": {
              k: v["flash_attention"] for k, v in fleet_launches.items()},
+         "launches_train_elastic": {
+             k: v["flash_attention"] for k, v in elastic_launches.items()},
+         "launches_train_elastic_multiproc_step": {
+             k: v["flash_attention"]
+             for k, v in elastic_mp_launches.items()},
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2369,6 +2880,11 @@ def main() -> int:
                for k in ("train_gemma2", "train_zamba2")},
            "launches_train_multiproc_step": {
                k: v[f"flash_bwd_{w}"] for k, v in fleet_launches.items()},
+           "launches_train_elastic": {
+               k: v[f"flash_bwd_{w}"] for k, v in elastic_launches.items()},
+           "launches_train_elastic_multiproc_step": {
+               k: v[f"flash_bwd_{w}"]
+               for k, v in elastic_mp_launches.items()},
            **bwd[w]}
           for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",

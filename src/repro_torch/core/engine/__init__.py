@@ -9,17 +9,28 @@ fleet):
   registry (``layered``, ``per_microbatch``, ``interleaved``);
 * :mod:`.substrate` — **LoopbackSubstrate**: the in-process ragged
   AllGatherv / ReduceScatterv;
-* :mod:`.transport`, :mod:`.ring`, :mod:`.verify` — the fleet's wire,
-  its ring collectives and its runtime comm sanitizer;
+* :mod:`.transport`, :mod:`.ring` — the fleet's wire and its ring
+  collectives;
 * :mod:`.multiproc` — **ProcessEngine**: the MPMD step across real
   rank processes, hub or ring, and the **WallClockOracle**;
 * :mod:`.api` — ``build_train_step(cfg, plan, schedule=...,
   substrate="loopback" | "multiproc")``, which returns a
-  ``TrainEngine``.
+  ``TrainEngine``;
+* :mod:`.elastic` — **ElasticEngine**: the closed-loop replanning
+  runtime on top of them — step-time telemetry refits the Sec. 2.3
+  latency models, ``auto_solve`` re-runs the Sec. 2.4 DP, and live
+  state migration reshards params and Adam moments between plans
+  (``build_train_step(..., elastic=True, cost_model=cm)``);
+* :mod:`.verify` — the offline protocol checker (``python -m
+  repro_torch.core.engine.verify``) and the fleet's runtime comm
+  sanitizer.
 """
 
 from repro_torch.core.engine.api import (MpmdEngine, TrainEngine,
                                          build_train_step, homogeneous_plan)
+from repro_torch.core.engine.elastic import (CostModelOracle,
+                                             ElasticConfig, ElasticEngine,
+                                             TelemetryBuffer, migrate_state)
 from repro_torch.core.engine.multiproc import (MultiProcessSubstrate,
                                                ProcessEngine,
                                                WallClockOracle)
@@ -33,9 +44,11 @@ from repro_torch.core.engine.units import (UnitGroup, UnitPlanner,
                                            split_params)
 
 __all__ = [
-    "CollectiveSubstrate", "LoopbackSubstrate", "MpmdEngine",
-    "MultiProcessSubstrate", "ProcessEngine", "Schedule", "TrainEngine",
-    "UnitGroup", "UnitPlanner", "WallClockOracle", "build_train_step",
-    "chunked", "element_tree", "get_schedule", "homogeneous_plan",
-    "list_schedules", "merge_params", "register_schedule", "split_params",
+    "CollectiveSubstrate", "CostModelOracle", "ElasticConfig",
+    "ElasticEngine", "LoopbackSubstrate", "MpmdEngine",
+    "MultiProcessSubstrate", "ProcessEngine", "Schedule",
+    "TelemetryBuffer", "TrainEngine", "UnitGroup", "UnitPlanner",
+    "WallClockOracle", "build_train_step", "chunked", "element_tree",
+    "get_schedule", "homogeneous_plan", "list_schedules", "merge_params",
+    "migrate_state", "register_schedule", "split_params",
 ]

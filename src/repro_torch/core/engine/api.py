@@ -13,7 +13,9 @@ unpadded ``(ell_i, m_i)`` work and software loopback collectives on one
 device, ``cuda`` unless ``device="cpu"`` is asked for.
 ``substrate="multiproc"`` runs the same step across a fleet of worker
 processes, one per rank, each on that device
-(:class:`~repro_torch.core.engine.multiproc.ProcessEngine`).  The SPMD
+(:class:`~repro_torch.core.engine.multiproc.ProcessEngine`).  With
+``elastic=`` either one is wrapped in the replanning
+:class:`~repro_torch.core.engine.elastic.ElasticEngine`.  The SPMD
 ``shard_map`` runtime is not ported yet (ROADMAP queue 1, item 10) and
 raises.
 """
@@ -134,6 +136,9 @@ def build_train_step(cfg: ArchConfig, plan: Plan, *,
                      adam: AdamConfig = AdamConfig(),
                      seq_len: int = 512,
                      device: torch.device | str = "cuda",
+                     elastic=None,
+                     cost_model=None,
+                     oracle=None,
                      **knobs) -> TrainEngine:
     """Build a train engine for ``(cfg, plan)``.
 
@@ -147,8 +152,33 @@ def build_train_step(cfg: ArchConfig, plan: Plan, *,
     ``ring_timeout=``, ``reply_timeout=``, ``start_method=`` and
     ``sanitize=`` (the runtime comm sanitizer on every ring worker;
     default ``$CEPHALO_COMM_SANITIZE``).  ``"shard_map"`` raises
-    NotImplementedError until its slice lands.
+    NotImplementedError until its slice lands.  With ``elastic=`` the
+    knobs and ``device`` are captured and re-applied on every replan
+    rebuild, so a ring fleet replans into a ring fleet on the same
+    device.
+
+    ``elastic`` — an :class:`~repro_torch.core.engine.elastic.ElasticConfig`
+    (or ``True`` for defaults) returns an
+    :class:`~repro_torch.core.engine.elastic.ElasticEngine` that replans
+    and live-migrates state when runtime telemetry drifts from the plan;
+    it needs ``cost_model`` (the ``ClusterCostModel`` the plan came
+    from).  ``oracle`` optionally overrides the latency-measurement
+    source (``elastic.CostModelOracle`` by default; a fleet's is
+    ``multiproc.WallClockOracle``).
     """
+    if elastic is not None and elastic is not False:
+        from repro_torch.core.engine.elastic import (ElasticConfig,
+                                                     ElasticEngine)
+        if cost_model is None:
+            raise ValueError("elastic replanning needs cost_model= (the "
+                             "ClusterCostModel the plan was solved from)")
+        ecfg = ElasticConfig() if elastic is True else elastic
+        return ElasticEngine(cfg, cost_model, plan=plan,
+                             schedule=schedule, substrate=substrate,
+                             adam=adam, seq_len=seq_len, device=device,
+                             elastic=ecfg, oracle=oracle, **knobs)
+    if cost_model is not None or oracle is not None:
+        raise ValueError("cost_model=/oracle= only apply with elastic=")
     sched = get_schedule(schedule)
     if substrate == "auto":
         substrate = "loopback"

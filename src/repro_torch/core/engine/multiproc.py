@@ -49,9 +49,8 @@ boundaries:
   host numpy arrays, as in the reference; a worker copies what it
   receives onto its device (on the CPU, into tensors of its own, so that
   the sender may reuse its arena as soon as it has the reply).
-* **WallClockOracle** — the real-measurement latency source the elastic
-  runtime (the reference's ``elastic.py``, not ported yet: ROADMAP queue
-  1, item 9) was designed to plug in:
+* **WallClockOracle** — the real-measurement latency source of the
+  elastic runtime (:mod:`repro_torch.core.engine.elastic`):
   passive queries are answered from each worker's measured fwd/bwd step
   timings, active probe queries run a timed single-layer pass (the
   paper's Sec. 3.1 profile, live; CUDA events on the card) *inside* the
@@ -1627,11 +1626,10 @@ class WallClockOracle:
       time — an actually-slow process, re-applied across replans (the
       slow *machine* stays slow even after the fleet is respawned).
 
-    The reference's ``ElasticEngine`` binds the oracle to its inner
-    engine automatically (``bind``), including after every
-    replan/migration; its port, and the replan loop that drives this
-    oracle, are ROADMAP queue 1, item 9's remaining part.  Until then
-    :meth:`bind` binds by hand.
+    :class:`~repro_torch.core.engine.elastic.ElasticEngine` binds the
+    oracle to its inner engine (:meth:`bind`), and again after every
+    replan's respawn; outside the elastic loop :meth:`bind` binds by
+    hand.
     """
 
     def __init__(self, probe_repeats: int = 2):
@@ -1667,9 +1665,10 @@ class WallClockOracle:
                 f"unknown phase {phase!r}; expected 'fwd' or 'bwd'")
         if self.engine is None:
             raise RuntimeError(
-                "WallClockOracle is unbound; call oracle.bind(engine) "
-                "with a build_train_step(..., substrate='multiproc') "
-                "engine")
+                "WallClockOracle is unbound: pass it to "
+                "build_train_step(..., substrate='multiproc', "
+                "elastic=True, oracle=...), which binds it, or call "
+                "oracle.bind(engine) on a multiproc engine")
         cached = self.engine.last_step_samples.get(rank)
         if cached is not None and cached[0] == m:
             return cached[1] if phase == "fwd" else cached[2]

@@ -19,8 +19,9 @@ model stats give exactly.
 :func:`refit_cluster_model` is the *online* half of the same machinery:
 per-rank ``(m, seconds)`` telemetry collected mid-training rebuilds the
 cost model through the identical :func:`fit_piecewise` path.  Its
-caller, the elastic runtime, is not ported yet (ROADMAP queue 1, item
-9).  :func:`wallclock_cluster_model` bootstraps the planner of the
+caller is the elastic runtime
+(:class:`repro_torch.core.engine.elastic.ElasticEngine`), which probes
+on :data:`PROFILE_MS`.  :func:`wallclock_cluster_model` bootstraps the planner of the
 process fleet (``launch.train --substrate multiproc``), whose worker
 probes time an element through :func:`layer_call`.
 """

@@ -16,9 +16,20 @@ starts from wall-clock latency models measured on the device
 (``profiler.wallclock_cluster_model``), and the memory report names each
 rank's worker pid.
 
-Not ported yet, and refused with the ROADMAP item that ports them:
-``--runtime spmd`` (queue 1, item 10); ``--elastic`` and ``--straggler``
-(queue 1, item 9: the elastic runtime).
+``--elastic`` wraps the engine in the elastic replanning runtime
+(:mod:`repro_torch.core.engine.elastic`): step-time telemetry refits
+the cost model, the planner re-solves when the observed imbalance
+crosses the threshold, and the training state (params and Adam moments)
+migrates live to the new plan.  Its telemetry comes from the cost model
+(``CostModelOracle``) on the loopback substrate and from the worker
+processes' wall clocks (``WallClockOracle``) on a fleet.  ``--straggler
+RANK:FACTOR@STEP`` injects a slowdown mid-run (``2:3.0@2`` makes rank 2
+three times slower from step 2; on a fleet its worker actually sleeps).
+After the run the launcher prints each replan event and, if it changed,
+the final plan; ``--checkpoint`` saves the final plan.
+
+Not ported yet, and refused with the ROADMAP item that ports it:
+``--runtime spmd`` (queue 1, item 10).
 
 Example (CPU, small model)::
 
@@ -49,6 +60,13 @@ and reduced, on the CPU::
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
         --reduced --seq 64 --batch 32 --cluster cluster-a --steps 3 \
         --device cpu
+
+gpt-1.3b at full width on Cluster A's plan, rank 2 three times slower
+from step 2: the replan after the third step sheds its batch::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \
+        --seq 512 --batch 128 --runtime mpmd --cluster cluster-a \
+        --steps 6 --elastic --straggler 2:3.0@2
 """
 
 from __future__ import annotations
@@ -56,13 +74,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.core import device_specs as D
-from repro_torch.core.cost_model import analytic_cluster_model
+from repro_torch.core.cost_model import (ClusterCostModel,
+                                         analytic_cluster_model)
 from repro_torch.core.engine import build_train_step, list_schedules
 from repro_torch.core.engine.transport import resolve_topology
 from repro_torch.core.model_stats import build_model_stats
@@ -79,8 +98,6 @@ CLUSTERS = {
                               link_gbps=50, name="mini"),
 }
 
-_ITEM_9 = ("not ported yet: ROADMAP queue 1, item 9 (the elastic "
-           "runtime)")
 _ITEM_10 = "not ported yet: ROADMAP queue 1, item 10 (SPMD runtime)"
 
 
@@ -104,16 +121,32 @@ def _train_loop(engine, args, plan, state=None, on_step=None) -> object:
     return state
 
 
-def solve_plan(args) -> Tuple[ArchConfig, Plan]:
-    """The model and its plan: the cost model of ``--cluster`` (cycled
-    out to ``--nprocs`` ranks when given), solved by ``auto_solve`` for
-    ``--batch``.  The cost model is analytic, or for ``--substrate
-    multiproc`` measured: the fleet's ranks share the one kind of device,
-    so its single-layer latency, measured there, is the observed truth.
-    Prints the plan; an infeasible plan exits."""
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+def _parse_straggler(spec: str) -> Tuple[int, float, int]:
+    """'RANK:FACTOR@STEP' → (rank, factor, step); exits on another
+    form."""
+    try:
+        head, step = spec.split("@")
+        rank, factor = head.split(":")
+        return int(rank), float(factor), int(step)
+    except ValueError:
+        raise SystemExit(f"--straggler {spec!r}: expected "
+                         "RANK:FACTOR@STEP, e.g. 1:3.0@5") from None
+
+
+def solve_plan(args, cfg: Optional[ArchConfig] = None
+               ) -> Tuple[ArchConfig, Plan, ClusterCostModel]:
+    """The model, its plan and the cost model the plan was solved from:
+    the cost model of ``--cluster`` (cycled out to ``--nprocs`` ranks
+    when given), solved by ``auto_solve`` for ``--batch``.  The cost
+    model is analytic, or for ``--substrate multiproc`` measured: the
+    fleet's ranks share the one kind of device, so its single-layer
+    latency, measured there, is the observed truth.  ``cfg`` replaces
+    ``--arch`` (and ``--reduced``) where given.  Prints the plan; an
+    infeasible plan exits."""
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     cluster = CLUSTERS[args.cluster]()
     if args.nprocs:
         devices = [cluster.devices[i % len(cluster.devices)]
@@ -133,7 +166,7 @@ def solve_plan(args) -> Tuple[ArchConfig, Plan]:
     print(plan.summary())
     if not plan.feasible:
         raise SystemExit(f"infeasible: {plan.infeasible_reason}")
-    return cfg, plan
+    return cfg, plan, cm
 
 
 def _substrate_knobs(args) -> dict:
@@ -151,18 +184,49 @@ def _substrate_knobs(args) -> dict:
     return knobs
 
 
-def build_engine(args, cfg: ArchConfig, plan: Plan):
+def elastic_knobs(args, cm: ClusterCostModel
+                  ) -> Tuple[dict, Optional[Callable[[int], None]]]:
+    """``build_train_step``'s elastic knobs for ``--elastic`` (none
+    without it), and the ``on_step`` hook of ``--straggler``, which
+    degrades the oracle's rank at its step.  The oracle is the fleet's
+    wall clock for ``--substrate multiproc``, else the cost model."""
+    if not args.elastic:
+        return {}, None
+    from repro_torch.core.engine.elastic import (CostModelOracle,
+                                                 ElasticConfig)
+    from repro_torch.core.engine.multiproc import WallClockOracle
+    oracle = WallClockOracle() if args.substrate == "multiproc" \
+        else CostModelOracle(cm)
+    knobs = dict(elastic=ElasticConfig(), cost_model=cm, oracle=oracle)
+    if not args.straggler:
+        return knobs, None
+    rank, factor, at_step = _parse_straggler(args.straggler)
+    if not 0 <= rank < cm.cluster.n:
+        raise SystemExit(f"--straggler rank {rank} out of range for "
+                         f"{cm.cluster.name} (n={cm.cluster.n})")
+
+    def on_step(step: int) -> None:
+        if step == at_step:
+            print(f"-- injecting straggler: rank {rank} x{factor} --")
+            oracle.degrade(rank, factor)
+    return knobs, on_step
+
+
+def build_engine(args, cfg: ArchConfig, plan: Plan, **elastic):
     """The MPMD engine for ``plan`` on ``--device``: loopback, or the
-    process fleet for ``--substrate multiproc``."""
+    process fleet for ``--substrate multiproc``; with the knobs of
+    :func:`elastic_knobs`, the elastic engine around it."""
     return build_train_step(cfg, plan, schedule=args.ga_mode,
                             substrate=args.substrate,
                             adam=AdamConfig(lr=args.lr), seq_len=args.seq,
-                            device=args.device, **_substrate_knobs(args))
+                            device=args.device, **_substrate_knobs(args),
+                            **elastic)
 
 
 def run_mpmd(args) -> None:
-    cfg, plan = solve_plan(args)
-    engine = build_engine(args, cfg, plan)
+    cfg, plan, cm = solve_plan(args)
+    knobs, on_step = elastic_knobs(args, cm)
+    engine = build_engine(args, cfg, plan, **knobs)
     with engine:
         state = engine.init_state(
             torch.Generator(args.device).manual_seed(args.seed))
@@ -170,7 +234,16 @@ def run_mpmd(args) -> None:
         sim = engine.simulated_iteration_seconds()
         print(f"predicted iteration: {sim['iteration_s']*1e3:.1f} ms "
               f"({sim['throughput_samples_s']:.2f} samples/s)")
-        state = _train_loop(engine, args, plan, state=state)
+        state = _train_loop(engine, args, plan, state=state,
+                            on_step=on_step)
+        final_plan = plan
+        if args.elastic:
+            for ev in engine.events:
+                print(f"replan@{ev.step} adopted={ev.adopted}: {ev.reason}")
+            if engine.plan is not plan:
+                print("final plan after replanning:")
+                print(engine.plan.summary())
+            final_plan = engine.plan
         if args.checkpoint:
             from repro_torch.checkpoint import checkpointing as C
             if args.substrate == "multiproc":
@@ -180,11 +253,11 @@ def run_mpmd(args) -> None:
                 C.save(args.checkpoint, args.steps,
                        [{k: exported[k] for k in ("p", "m", "v")}],
                        {"step": exported["step"]},
-                       meta={"plan": plan.to_json(),
+                       meta={"plan": final_plan.to_json(),
                              "format": "exported"})
             else:
                 C.save(args.checkpoint, args.steps, state, {},
-                       meta={"plan": plan.to_json()})
+                       meta={"plan": final_plan.to_json()})
             print(f"saved checkpoint to {args.checkpoint}")
 
 
@@ -216,10 +289,10 @@ def parser() -> argparse.ArgumentParser:
                     help="multiproc: overlap the ring's collective rounds "
                          "with compute (needs --topology ring)")
     ap.add_argument("--elastic", action="store_true",
-                    help="the replanning runtime (not ported yet)")
+                    help="enable the replanning runtime (mpmd only)")
     ap.add_argument("--straggler", default="",
-                    help="inject a slowdown: RANK:FACTOR@STEP (not ported "
-                         "yet)")
+                    help="inject a slowdown: RANK:FACTOR@STEP "
+                         "(requires --elastic)")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap
@@ -227,12 +300,16 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser().parse_args(argv)
+    if args.runtime != "mpmd" and (args.elastic or args.straggler):
+        raise SystemExit("--elastic/--straggler require --runtime mpmd "
+                         "(the replanning loop drives the planner, which "
+                         "the homogeneous SPMD launcher bypasses)")
     if args.runtime == "spmd":
         raise SystemExit(f"--runtime spmd is {_ITEM_10}")
-    for flag, on in (("--elastic", args.elastic),
-                     ("--straggler", bool(args.straggler))):
-        if on:
-            raise SystemExit(f"{flag} is {_ITEM_9}")
+    if args.straggler and not args.elastic:
+        raise SystemExit("--straggler needs --elastic")
+    if args.straggler:
+        _parse_straggler(args.straggler)
     _substrate_knobs(args)      # a flag error exits before any work
     M.resolve_device(args.device)
     run_mpmd(args)

@@ -7,9 +7,14 @@ against the JAX package's, on the CPU.
 * From the same state (the reference engine's exported init, carried
   across through numpy), the two launchers' ``_train_loop`` give the same
   losses within 1e-5.
-* The flags whose runtimes are not ported exit with the ROADMAP item
-  that ports them; ``--overlap`` needs ``--topology ring``;
-  ``--checkpoint`` writes the reference's layout.
+* ``--runtime spmd`` exits with the ROADMAP item that ports it; the
+  elastic flags' misuses exit with the reference's messages;
+  ``--overlap`` needs ``--topology ring``; ``--checkpoint`` writes the
+  reference's layout.
+* ``--elastic`` runs on the loopback substrate and on a fleet (hub,
+  overlapped ring); with ``--straggler`` the launcher prints the
+  reference launcher's replan events and final plan for the same argv,
+  and ``--checkpoint`` saves the final plan.
 * ``--substrate multiproc --nprocs 2 --topology ring`` prints the loss
   lines of the loopback launcher on the same plan, exactly.
 * ``python -m repro_torch.examples.quickstart --device cpu``: the loss
@@ -107,7 +112,7 @@ def test_launcher_plans_mamba2_as_the_reference(extra, capsys, monkeypatch):
         assert len(got_steps) == len(want_steps) == 2
         return
     args = launch.parser().parse_args(argv + ["--device", "cpu"])
-    cfg, plan = launch.solve_plan(args)
+    cfg, plan, _ = launch.solve_plan(args)
     got = capsys.readouterr().out
     jcfg = jax_arch("mamba2-370m")
     jplan = jax_launch.auto_solve(jax_launch.analytic_cluster_model(
@@ -140,7 +145,7 @@ def test_launcher_trains_pair_and_hybrid_on_the_reference_plan(arch,
     want = jplan.summary().splitlines()
     assert got[:len(want)] == want
     args = launch.parser().parse_args(argv)
-    _, plan = launch.solve_plan(args)
+    _, plan, _ = launch.solve_plan(args)
     assert plan.to_json() == jplan.to_json()
     losses = [float(ln.split()[3]) for ln in steps]
     assert len(losses) == 2 and all(np.isfinite(losses))
@@ -162,7 +167,7 @@ def test_train_loops_agree_from_the_same_state(capsys):
     args = argparse.Namespace(arch="tiny-llama", reduced=True, steps=3,
                               batch=12, seq=32, seed=0, cluster="mini",
                               nprocs=0, device="cpu", substrate="loopback")
-    cfg, plan = launch.solve_plan(args)
+    cfg, plan, _ = launch.solve_plan(args)
     jcfg = jax_arch("tiny-llama").reduced()
     jcm = jax_launch.analytic_cluster_model(
         jax_launch.CLUSTERS["mini"](),
@@ -188,20 +193,90 @@ def test_train_loops_agree_from_the_same_state(capsys):
         assert abs(a - b) <= 1e-5, (rec.losses, jrec.losses)
 
 
-@pytest.mark.parametrize("flags,item", [
+@pytest.mark.parametrize("flags,message", [
     (["--runtime", "spmd"], "item 10"),
-    (["--substrate", "multiproc", "--elastic"], "item 9"),
-    (["--elastic"], "item 9"),
-    (["--elastic", "--straggler", "1:3.0@5"], "item 9"),
     (["--substrate", "multiproc", "--topology", "ring", "--straggler",
-      "0:2.0@1"], "item 9"),
-    (["--substrate", "multiproc", "--topology", "ring", "--overlap",
-      "--elastic"], "item 9")])
-def test_unported_flags_exit_with_their_roadmap_item(flags, item):
-    """The elastic runtime's flags exit with their item, on the process
-    fleet too, before a worker spawns."""
-    with pytest.raises(SystemExit, match=item):
+      "0:2.0@1"], "--straggler needs --elastic"),
+    (["--straggler", "1:3.0@1"], "--straggler needs --elastic"),
+    (["--elastic", "--straggler", "4:3.0@1"], "out of range for mini"),
+    (["--elastic", "--straggler", "1@3"], "expected RANK:FACTOR@STEP"),
+    (["--runtime", "spmd", "--elastic"], "require --runtime mpmd"),
+    (["--runtime", "spmd", "--straggler", "1:3.0@1"],
+     "require --runtime mpmd")])
+def test_refused_flags_exit_with_their_reason(flags, message):
+    """The SPMD runtime exits with its ROADMAP item; the elastic flags'
+    misuses exit with the reference's messages, on the process fleet
+    too, before a worker spawns."""
+    with pytest.raises(SystemExit, match=message):
         launch.main(ARGV + ["--device", "cpu"] + flags)
+
+
+FLEET = ["--substrate", "multiproc", "--nprocs", "2", "--batch", "8",
+         "--seq", "16"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--elastic"],
+    ["--elastic", "--straggler", "1:3.0@5"],
+    FLEET + ["--elastic"],
+    FLEET + ["--topology", "ring", "--overlap", "--elastic"]],
+    ids=["loopback", "straggler-after-the-run", "hub-fleet",
+         "overlapped-ring-fleet"])
+def test_elastic_flags_run(flags, capsys):
+    """``--elastic`` trains on the elastic engine, on the loopback
+    substrate (a healthy cluster: no replan) and on a fleet of two
+    worker processes, hub or overlapped ring (wall-clock telemetry: a
+    replan may fire on the host's noise); a straggler due after the last
+    step is never injected."""
+    launch.main(ARGV + ["--device", "cpu"] + flags)
+    out = capsys.readouterr().out.splitlines()
+    steps = [ln for ln in out if ln.startswith("step ")]
+    assert len(steps) == 3
+    assert all(np.isfinite(float(ln.split()[3])) for ln in steps)
+    assert not any("injecting straggler" in ln for ln in out)
+    if "--substrate" not in flags:
+        assert not any(ln.startswith(("replan@", "final plan"))
+                       for ln in out)
+
+
+ELASTIC = ["--arch", "tiny-llama", "--reduced", "--steps", "8", "--batch",
+           "48", "--seq", "32", "--cluster", "mini", "--elastic",
+           "--straggler", "1:3.0@2"]
+
+
+def test_elastic_launcher_prints_the_reference_replans(capsys,
+                                                       monkeypatch):
+    """The same argv on both launchers: the same plan, memory report,
+    straggler line, replan events and final plan (the losses differ:
+    each launcher draws its own init)."""
+    def jax_main(a):
+        monkeypatch.setattr(sys, "argv", ["train"] + a)
+        jax_launch.main()
+
+    got, got_steps = _run(launch.main, ELASTIC + ["--device", "cpu"],
+                          capsys)
+    want, want_steps = _run(jax_main, ELASTIC, capsys)
+    assert got == want
+    assert len(got_steps) == len(want_steps) == 8
+    assert "-- injecting straggler: rank 1 x3.0 --" in got
+    replans = [ln for ln in got if ln.startswith("replan@")]
+    assert replans and replans[0].startswith("replan@3 adopted=True: "
+                                             "imbalance")
+    assert "final plan after replanning:" in got
+
+
+def test_elastic_checkpoint_saves_the_final_plan(capsys):
+    with tempfile.TemporaryDirectory() as d:
+        launch.main(ELASTIC + ["--device", "cpu", "--checkpoint", d])
+        out = capsys.readouterr().out.splitlines()
+        assert f"saved checkpoint to {d}" in out
+        man = JCK._read_manifest(d)
+    assert man["step"] == 8
+    saved = launch.Plan.from_json(man["meta"]["plan"])
+    first = out.index("final plan after replanning:")
+    final = out[first + 1: first + 2 + saved.n]
+    assert saved.summary().splitlines() == final
+    assert out[0] != final[0] or out[1:1 + saved.n] != final[1:]
 
 
 @pytest.mark.parametrize("flags", [
