@@ -233,7 +233,32 @@ Phases, each printing one JSON line:
              with the fleet's losses and state bit for bit; step ms
              before and after, respawn and migrate seconds, the events,
              the card's and the host's most used memory;
-17. verify_protocol — the offline protocol checker's entry point
+17. train_spmd — the SPMD runtime through the launcher's ``--runtime
+             spmd`` (``launch.train.run_spmd``) on gpt-1.3b at full width
+             and depth (seq 512, bf16 compute, fp32 state): the world sized
+             from the card count, one rank on the one card over NCCL,
+             ``--batch 16 --ell 4`` (4 microbatches of 4), layered, 1
+             warm-up step and 3 timed ones; each step's flash launches,
+             counted in the rank process, and its collectives what the
+             schedule predicts, all ``bf16-mma``; then the loopback engine
+             on the same plan, blocks and seed, each loss within 2e-3
+             relative (a few bf16 rounding steps: the SPMD rank sums the
+             microbatches one by one); step ms, samples/s, the rank's peak
+             device memory, its collectives;
+17b. train_spmd_shared — two uneven ranks of the SPMD runtime (the
+             parity matrix's m, ell, ratio: 2, 2, 0.6 and 1, 1, 0.4) on
+             the one card, gloo over pinned host copies, gpt-1.3b at full
+             width on 4 of 24 layers, fp32 with TF32 off, seq 512: layered
+             and per_microbatch, 1 step each from a seeded generator,
+             against the loopback engine on the card: each loss within
+             1e-4, p within 2e-4 where Adam was well conditioned (the
+             reference's shard_map gate), Adam's m within 1e-4 relative
+             (it carries the gradients' scale); each step's collectives as the
+             schedule predicts, the launches all ``fp32-fma``; then the
+             state migrates to the loopback engine and to a second world
+             with the ratios swapped, bit for bit; step ms, the host copy
+             bytes a step, the card's and the host's most used memory;
+18. verify_protocol — the offline protocol checker's entry point
              (``repro_torch.core.engine.verify``): the 132-cell grid on both
              data planes, the determinism lint on the port's data plane,
              the 5 seeded mutants; it must exit 0.
@@ -242,8 +267,8 @@ Then the script's wall time, the card's name and power limit, a line
 ``{"kernels": [...]}`` with each kernel's launches on its main-path run
 (serving for the forwards, phase ``train`` for the flash backward, the
 timed steps of ``plan_train_mamba2`` for the SSD backward; a planned
-step's launches and the MoE, pair, hybrid, frontend, fleet and elastic
-phases' beside them), its error and its times, and last
+step's launches and the MoE, pair, hybrid, frontend, fleet, elastic and
+SPMD phases' beside them), its error and its times, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -281,6 +306,7 @@ from repro_torch.core.cost_model import fit_piecewise  # noqa: E402
 from repro_torch.core.engine import build_train_step  # noqa: E402
 from repro_torch.core.engine import elastic  # noqa: E402
 from repro_torch.core.engine import verify  # noqa: E402
+from repro_torch.core.engine import world as spmd_world  # noqa: E402
 from repro_torch.core.engine.verify import cli as verify_cli  # noqa: E402
 from repro_torch.core.engine.schedules import get_schedule  # noqa: E402
 from repro_torch.core.engine.units import UnitPlanner  # noqa: E402
@@ -498,6 +524,26 @@ ELASTIC_MP_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ),
                    "--substrate", "multiproc", "--nprocs", "2",
                    "--topology", "ring", "--elastic", "--straggler",
                    "0:3.0@2", "--steps", "10"]
+# phase train_spmd: the launcher's --runtime spmd at full width and depth
+# (one rank on the one card), 1 warm-up step and SPMD_STEPS timed ones,
+# held against the loopback engine within SPMD_REL_TOL of each loss:
+# a few bf16 rounding steps (the SPMD rank sums 4 microbatches one by
+# one, the loopback engine takes the 16 rows at once)
+SPMD_STEPS = 3
+SPMD_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", "16",
+             "--ell", "4", "--runtime", "spmd", "--ga-mode", "layered",
+             "--steps", str(SPMD_STEPS + 1)]
+SPMD_REL_TOL = 2e-3
+# phase train_spmd_shared: two uneven ranks (the parity matrix's m, ell,
+# ratio) on the one card at full width on SHARED_LAYERS layers, fp32
+SHARED_LAYERS = 4
+SHARED_RANKS = [("rank0", 2, 2, 0.6), ("rank1", 1, 1, 0.4)]
+SHARED_STEPS = 1     # the phase's time is its host plane's: ~10 s a step
+SHARED_SCHEDULES = ("layered", "per_microbatch")
+SHARED_LOSS_TOL, SHARED_P_TOL = 1e-4, 2e-4   # tests/test_parity_matrix.py
+# Adam's first moment after the step, (1 - b1) g, against the loopback's,
+# relative in the 2-norm of each leaf: fp32 grads summed in another order
+SHARED_M_TOL = 1e-4
 
 
 CARD: list = []     # the card's name and power limit (phase device)
@@ -2774,6 +2820,327 @@ def phase_verify_protocol() -> dict:
     return res
 
 
+def _spmd_launches(cfg, microbatches: int, variant: str) -> dict:
+    """The kernel launches of an SPMD step: each rank runs every
+    microbatch of its padded grid through each element once forward and
+    once in the backward's recompute, and the backward kernels once;
+    every launch on ``variant``."""
+    per = _train_kernel_calls(cfg)
+    want = {k: per[k] * microbatches for k in ("flash_attention",
+                                               "flash_bwd_dq",
+                                               "flash_bwd_dkdv")}
+    return {**want, f"flash_attention/{variant}": want["flash_attention"],
+            f"flash_bwd/{variant}": 2 * want["flash_bwd_dq"]}
+
+
+def _spmd_collectives(cfg, rounds: int) -> dict:
+    """Per rank and step: each round gathers every unit in its forward
+    (the embedding, each stage element, the misc unit in the head, the
+    head; misc in the embedding too with learned positions) and again in
+    the backward's recompute, and ReduceScatters each gather's gradient
+    (no replica all-reduce: the state is sharded over every rank)."""
+    units = sum(g.count for g in UnitPlanner(cfg, [1.0]).groups) + \
+        int(cfg.learned_pos)
+    return {"all_gather": 2 * rounds * units,
+            "reduce_scatter": rounds * units, "all_reduce": 0}
+
+
+def _check_spmd_step(phase: str, rec: list, launches: dict,
+                     collectives: dict, backend: str) -> dict:
+    """Every rank's record of one step: its launches (summed over the
+    ranks) and its collectives as predicted, on ``backend``."""
+    got = {}
+    for r in rec:
+        for k, n in r["launches"].items():
+            got[k] = got.get(k, 0) + n
+        if r["collectives"] != collectives or r["backend"] != backend:
+            raise AssertionError(f"{phase}: rank collectives "
+                                 f"{r['collectives']} on {r['backend']}, "
+                                 f"expected {collectives} on {backend}")
+    got = {k: n for k, n in got.items() if n}
+    if got != launches:
+        raise AssertionError(f"{phase}: launches {got}, expected {launches}")
+    return got
+
+
+def phase_train_spmd() -> dict:
+    """The launcher's ``--runtime spmd`` (``launch.train.run_spmd``) on
+    gpt-1.3b at full width and depth: the world sized from the card count
+    (one rank, mesh (1, 1), NCCL), ``--batch 16 --ell 4`` (4 microbatches
+    of 4), layered, 1 warm-up step and SPMD_STEPS timed ones.  Each timed
+    step's flash launches, counted in the rank process, and its
+    collectives must be what the schedule predicts, all ``bf16-mma``.
+    Then, the SPMD world closed, the loopback engine takes the same steps
+    on the same plan from the same generator seed: each loss within
+    SPMD_REL_TOL relative.  Returns the launches of a timed step."""
+    if torch.cuda.memory_allocated() > 2**30:
+        raise AssertionError("train_spmd: earlier phases still hold "
+                             f"{torch.cuda.memory_allocated()} B")
+    args = train_launch.parser().parse_args(SPMD_ARGS)
+    cfg = get_arch(TRAIN_ARCH)
+    mesh, plan = train_launch.spmd_world(args)
+    place = spmd_world.placement("cuda", plan.n)
+    if (plan.n, place.backend) != (1, "nccl"):
+        raise AssertionError(f"train_spmd: {plan.n} ranks on "
+                             f"{place.backend}, expected one on nccl")
+    t0 = time.perf_counter()
+    records = train_launch.run_spmd(args)
+    run_s = time.perf_counter() - t0
+    _progress("train_spmd spmd", t0)
+    ell = plan.ranks[0].ell
+    want = _spmd_launches(cfg, ell * plan.n, "bf16-mma")
+    colls = _spmd_collectives(cfg, len(get_schedule("layered").chunks(ell)))
+    for i, rec in enumerate(records[1:]):
+        _check_spmd_step(f"train_spmd step {i + 1}", rec["ranks"], want,
+                         colls, "nccl")
+    losses = [rec["loss"] for rec in records]
+    step_ms = [rec["step_ms"] for rec in records[1:]]
+    # the loopback engine on the same plan, blocks and seed
+    t0 = time.perf_counter()
+    engine = build_train_step(cfg, plan, substrate="loopback",
+                              schedule="layered", seq_len=args.seq,
+                              adam=AdamConfig(lr=args.lr))
+    state = engine.init_state(
+        torch.Generator(device="cuda").manual_seed(args.seed))
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, args.seq,
+                                        seed=args.seed))
+    ref, ref_ms = [], []
+    for step in range(args.steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = engine.step(state, stream.sample(step,
+                                                       plan.global_batch))
+        torch.cuda.synchronize()
+        ref.append(loss)
+        if step:
+            ref_ms.append((time.perf_counter() - t1) * 1e3)
+    del engine, state
+    torch.cuda.empty_cache()
+    _progress("train_spmd loopback", t0)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    if not (all(np.isfinite(losses)) and max(rel) <= SPMD_REL_TOL):
+        raise AssertionError(f"train_spmd: losses {losses} against the "
+                             f"loopback's {ref}: relative {rel}")
+    mean_ms = float(np.mean(step_ms))
+    rank = records[-1]["ranks"][0]
+    emit({"phase": "train_spmd", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": sum(
+              g.layout.size * g.count
+              for g in UnitPlanner(cfg, [1.0]).groups),
+          "seq": args.seq, "global_batch": plan.global_batch,
+          "mesh": mesh.shape, "ranks": plan.n, "ell": ell,
+          "m": plan.ranks[0].m, "backend": rank["backend"],
+          "device": rank["device"], "schedule": "layered",
+          "run_s": run_s, "losses": losses, "step_ms": step_ms,
+          "mean_step_ms": mean_ms,
+          "samples_s": plan.global_batch / (mean_ms / 1e3),
+          "tokens_s": plan.global_batch * args.seq / (mean_ms / 1e3),
+          "rank_step_s": [rec["ranks"][0]["seconds"]
+                          for rec in records[1:]],
+          "peak_mem_gib": max(rec["ranks"][0]["peak_bytes"]
+                              for rec in records[1:]) / 2**30,
+          "launches_per_step": rank["launches"],
+          "collectives_per_step": rank["collectives"],
+          "loopback": {"losses": ref, "step_ms": ref_ms,
+                       "mean_step_ms": float(np.mean(ref_ms))},
+          "loss_rel_diff": rel, "tolerance": SPMD_REL_TOL})
+    return {k: rank["launches"][k] for k in ("flash_attention",
+                                             "flash_bwd_dq",
+                                             "flash_bwd_dkdv")}
+
+
+def _m_rel(got: dict, want: dict) -> float:
+    """max over the leaves of |got - want| / |want| (2-norms).  After one
+    step Adam's m is (1 - b1) g: this holds the gradient, its scale
+    included, which p after a first step (lr sign(g)) cannot show."""
+    worst = 0.0
+    for a, b in zip(fsdp.tree_flatten(got)[0], fsdp.tree_flatten(want)[0]):
+        a, b = a.double(), b.double()
+        d, nb = (a - b).norm().item(), b.norm().item()
+        worst = max(worst, d / nb if nb else d)
+    return worst
+
+
+def _p_close(got: dict, want: dict, v: dict, bound: float) -> tuple:
+    """(max |got - want| over the params where Adam's steps were well
+    conditioned — sqrt(v_hat) >= 1e-6, 100x Adam's eps — and over all).
+    Where a grad is near 1e-8 an fp32-level difference of it moves p by
+    a fraction of lr; no element may be more than ``bound`` apart."""
+    well_err, all_err = 0.0, 0.0
+    for a, b, vv in zip(fsdp.tree_flatten(got)[0], fsdp.tree_flatten(want)[0],
+                        fsdp.tree_flatten(v)[0]):
+        e = (a.float() - b.float()).abs()
+        well = torch.sqrt(vv / (1 - AdamConfig().b2)) >= 1e-6
+        all_err = max(all_err, e.max().item())
+        if well.any():
+            well_err = max(well_err, e[well].max().item())
+    if all_err > bound:
+        raise AssertionError(f"p differs by {all_err} > {bound}")
+    return well_err, all_err
+
+
+def phase_train_spmd_shared() -> dict:
+    """Two uneven ranks of the SPMD runtime on the one card: gpt-1.3b at
+    full width on SHARED_LAYERS layers, fp32 (TF32 off), seq 512, the
+    parity matrix's plan (SHARED_RANKS).  The ranks share the card, so
+    they run gloo over pinned host copies.  Per schedule
+    (SHARED_SCHEDULES), SHARED_STEPS steps from a seeded generator
+    against the loopback engine's on the card: each loss within
+    SHARED_LOSS_TOL, p after the steps within SHARED_P_TOL where Adam was
+    well conditioned, Adam's m within SHARED_M_TOL relative (it carries
+    the gradients' scale, which a first step's p does not); each step's
+    collectives and launches as the
+    schedule predicts, all ``fp32-fma``.  Then the state migrates from
+    the last schedule's world to the loopback engine and to a second
+    SPMD world with the ratios swapped: both bit for bit.  Returns the
+    launches that the ranks counted in a step."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=SHARED_LAYERS,
+                              dtype="float32")
+    ranks = [RankPlan(i, d, m=m, ell=ell, state_ratio=r)
+             for i, (d, m, ell, r) in enumerate(SHARED_RANKS)]
+    plan = Plan(model=cfg.name, cluster="spmd-1-gpu",
+                global_batch=sum(r.b for r in ranks), ranks=ranks)
+    place = spmd_world.placement("cuda", plan.n)
+    if (place.backend, place.staged) != ("gloo", True):
+        raise AssertionError(f"train_spmd_shared: {place}")
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, seed=0))
+    blocks = [stream.sample(i, plan.global_batch)
+              for i in range(SHARED_STEPS)]
+    microbatches = plan.n * max(plan.ell_pad, 1)
+    want = _spmd_launches(cfg, microbatches, "fp32-fma")
+    lr = AdamConfig().lr
+    res = {"phase": "train_spmd_shared", "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "seq": TRAIN_SEQ, "ranks": SHARED_RANKS,
+           "global_batch": plan.global_batch, "backend": place.backend,
+           "devices": place.devices, "expected_launches_per_step": want}
+
+    def run(substrate, sched):
+        engine = build_train_step(cfg, plan, substrate=substrate,
+                                  schedule=sched, seq_len=TRAIN_SEQ)
+        t0 = time.perf_counter()
+        state = engine.init_state(
+            torch.Generator(device="cuda").manual_seed(0))
+        out = {"init_s": time.perf_counter() - t0, "losses": [],
+               "step_ms": [], "records": []}
+        for blk in blocks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = engine.step(state, blk)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(loss)
+            out["records"].append(getattr(engine, "last_step", None))
+        return engine, state, out
+
+    def host(exported):
+        return {k: v if k == "step" else
+                M.tree_map(v, lambda _, t: t.cpu()) for k, v in
+                exported.items()}
+
+    spmd = state = None
+    try:
+        for sched in SHARED_SCHEDULES:
+            t0 = time.perf_counter()
+            engine, lstate, ref = run("loopback", sched)
+            ref_export = host(engine.export_state(lstate))
+            del engine, lstate
+            torch.cuda.empty_cache()
+            if spmd is not None:
+                spmd.close()
+            torch.cuda.reset_peak_memory_stats()
+            with _MemPoll() as mem:
+                t1 = time.perf_counter()
+                spmd, state, got = run("shard_map", sched)
+                start_s = time.perf_counter() - t1 - got["init_s"] - \
+                    sum(got["step_ms"]) / 1e3
+                export = spmd.export_state(state)
+            rounds = len(get_schedule(sched).chunks(max(plan.ell_pad, 1)))
+            colls = _spmd_collectives(cfg, rounds)
+            for i, rec in enumerate(got["records"]):
+                launches = _check_spmd_step(
+                    f"train_spmd_shared {sched} step {i}", rec, want, colls,
+                    "gloo")
+            loss_diff = max(abs(a - b) for a, b in zip(got["losses"],
+                                                       ref["losses"]))
+            if not loss_diff <= SHARED_LOSS_TOL:
+                raise AssertionError(
+                    f"train_spmd_shared {sched}: losses {got['losses']} "
+                    f"against the loopback's {ref['losses']}")
+            p_well, p_all = _p_close(export["p"], ref_export["p"],
+                                     ref_export["v"],
+                                     2 * lr * SHARED_STEPS)
+            if not p_well <= SHARED_P_TOL:
+                raise AssertionError(f"train_spmd_shared {sched}: p "
+                                     f"differs by {p_well}")
+            m_rel = _m_rel(export["m"], ref_export["m"])
+            if not m_rel <= SHARED_M_TOL:
+                raise AssertionError(f"train_spmd_shared {sched}: m "
+                                     f"differs by {m_rel} relative")
+            res[sched] = {
+                "losses": got["losses"], "loopback_losses": ref["losses"],
+                "loss_max_diff": loss_diff, "p_max_diff_well": p_well,
+                "p_max_diff_all": p_all, "m_rel_diff": m_rel,
+                "m_tolerance": SHARED_M_TOL, "world_start_s": start_s,
+                "init_s": got["init_s"], "step_ms": got["step_ms"],
+                "loopback_step_ms": ref["step_ms"],
+                "rank_step_s": [[r["seconds"] for r in rec]
+                                for rec in got["records"]],
+                "host_bytes_per_step": [sum(r["host_bytes"] for r in rec)
+                                        for rec in got["records"]],
+                "rank_peak_gib": [max(r["peak_bytes"] for r in rec) / 2**30
+                                  for rec in got["records"]],
+                "collectives_per_step": got["records"][-1][0]["collectives"],
+                "expected_collectives": colls,
+                "card_used_gib_max": mem.max / 2**30,
+                "host_used_gib_max": None if mem.host_max is None
+                else mem.host_max / 2**30,
+                "seconds": time.perf_counter() - t0}
+            _progress(f"train_spmd_shared {sched}", t0)
+        # migrations from the last world (its export above is
+        # migrate_state's first half): to the loopback engine and to a
+        # second world with the ratios swapped, bit for bit
+        t0 = time.perf_counter()
+        loop = build_train_step(cfg, plan, substrate="loopback",
+                                seq_len=TRAIN_SEQ)
+        moved = host(loop.export_state(loop.import_state(export)))
+        diff_loop = _state_diff(export, moved)
+        steps = [moved["step"]]
+        del loop, moved
+        torch.cuda.empty_cache()
+        swapped = dataclasses.replace(plan, ranks=[
+            dataclasses.replace(r, state_ratio=SHARED_RANKS[1 - i][3])
+            for i, r in enumerate(ranks)])
+        with build_train_step(cfg, swapped, substrate="shard_map",
+                              seq_len=TRAIN_SEQ) as other:
+            moved = other.export_state(other.import_state(export))
+            diff_swap = _state_diff(export, moved)
+            steps.append(moved["step"])
+            del moved
+        if diff_loop != 0.0 or diff_swap != 0.0 or \
+                steps != [export["step"]] * 2:
+            raise AssertionError(f"train_spmd_shared: migrations differ by "
+                                 f"{diff_loop} (loopback), {diff_swap} "
+                                 f"(swapped ratios); steps {steps}")
+        res["migration"] = {"to_loopback_max_diff": diff_loop,
+                            "to_swapped_max_diff": diff_swap,
+                            "step": export["step"],
+                            "seconds": time.perf_counter() - t0}
+    finally:
+        if spmd is not None:
+            spmd.close()
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    emit(res)
+    return {k: launches[k] for k in ("flash_attention", "flash_bwd_dq",
+                                     "flash_bwd_dkdv")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2842,6 +3209,8 @@ def main() -> int:
     mamba_launches = phase_plan_train_mamba2()
     elastic_launches = phase_plan_train_elastic()
     elastic_mp_launches = phase_train_elastic_multiproc()
+    spmd_launches = {"train_spmd": phase_train_spmd(),
+                     "train_spmd_shared": phase_train_spmd_shared()}
     phase_verify_protocol()
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
@@ -2865,6 +3234,8 @@ def main() -> int:
          "launches_train_elastic_multiproc_step": {
              k: v["flash_attention"]
              for k, v in elastic_mp_launches.items()},
+         "launches_train_spmd_step": {
+             k: v["flash_attention"] for k, v in spmd_launches.items()},
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2885,6 +3256,8 @@ def main() -> int:
            "launches_train_elastic_multiproc_step": {
                k: v[f"flash_bwd_{w}"]
                for k, v in elastic_mp_launches.items()},
+           "launches_train_spmd_step": {
+               k: v[f"flash_bwd_{w}"] for k, v in spmd_launches.items()},
            **bwd[w]}
           for w in ("dq", "dkdv")),
         {"name": "ssd_scan", "route": "cuda",

@@ -26,8 +26,8 @@ against the manifest and raises :class:`ValueError` on any mismatch, so
 a corrupt or truncated checkpoint can never be silently opened.
 
 Works for the MPMD loopback runtime's per-rank state shards, and for
-the process fleet's state through its exported trees (the launcher
-saves those); the SPMD path is not ported yet.  Ratio changes between
+the process fleet's and the SPMD runtime's state through their exported
+trees (the launcher saves those).  Ratio changes between
 save and restore go through :func:`reshard` (gather → re-slice) — the
 *offline* analogue of the paper's elastic re-planning when cluster
 composition changes.  The engine surface ``export_state``/``import_state``

@@ -168,8 +168,8 @@ def migrate_state(src: TrainEngine, state: Any, dst: TrainEngine) -> Any:
     arithmetic — so the migrated state matches a from-scratch resharding
     of the new plan exactly, optimizer moments and step counter
     included.  Works across plans of different rank counts and across
-    substrates (loopback ↔ process fleet), since the interchange format
-    is the full tree.
+    substrates (shard_map ↔ loopback ↔ process fleet), since the
+    interchange format is the full tree.
     """
     return dst.import_state(src.export_state(state))
 

@@ -93,6 +93,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import fsdp, profiler
 from repro_torch.core.engine import ring
 from repro_torch.core.engine.api import TrainEngine
+from repro_torch.core.engine.ranks import (REPLY_TIMEOUT, RankPool,
+                                           apply_settings,
+                                           report_start_failure)
 from repro_torch.core.engine.schedules import Schedule
 from repro_torch.core.engine.substrate import LoopbackSubstrate
 from repro_torch.core.engine.transport import (Channel, resolve_overlap,
@@ -108,11 +111,6 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import model as M
 from repro_torch.optim.adam import AdamConfig, adam_update
-
-#: default seconds to wait for a worker reply before declaring it hung.
-#: first replies include torch's import, the device's start-up and, on
-#: the card, loading the kernels, so this is generous.
-REPLY_TIMEOUT = 600.0
 
 #: default bounded wait for one ring-step receive between workers.  A
 #: ring peer that produces nothing within this window is declared hung
@@ -824,26 +822,17 @@ def _worker_main(spec: WorkerSpec, conn, ring_prev=None,
     switches, then its device; a worker that cannot have its device (CUDA
     asked for, none there) replies to the start-up with its traceback,
     which the coordinator raises.  The reference's optional
-    ``jax.distributed`` start-up has no counterpart here: a
-    ``torch.distributed`` process group belongs to the SPMD runtime
-    (ROADMAP queue 1, item 10); the fleet's data plane is its own
-    channels.
+    ``jax.distributed`` start-up has no counterpart here: the
+    ``torch.distributed`` process groups belong to the SPMD runtime
+    (:mod:`repro_torch.core.engine.world`); the fleet's data plane is its
+    own channels.
     """
-    if spec.threads:
-        torch.set_num_threads(spec.threads)
-    torch.backends.cuda.matmul.allow_tf32 = spec.allow_tf32[0]
-    torch.backends.cudnn.allow_tf32 = spec.allow_tf32[1]
+    apply_settings(spec.threads, spec.allow_tf32)
     channel = Channel(conn, transport=spec.transport)
     try:
         M.resolve_device(spec.device)
     except Exception:   # noqa: BLE001 - forwarded to coordinator
-        channel.send("error", {"traceback": traceback.format_exc()})
-        try:    # then answer the coordinator's close
-            if channel.recv()[0] == "exit":
-                channel.send("ok")
-        except (EOFError, OSError):
-            pass
-        channel.close()
+        report_start_failure(channel)
         return
     channel.send("ready", {"pid": os.getpid(), "rank": spec.rank})
     links = None
@@ -955,15 +944,15 @@ def _worker_main(spec: WorkerSpec, conn, ring_prev=None,
 # Coordinator side
 # ---------------------------------------------------------------------------
 
-class MultiProcessSubstrate(LoopbackSubstrate):
+class MultiProcessSubstrate(RankPool, LoopbackSubstrate):
     """``LoopbackSubstrate`` surface with a process-per-rank data plane.
 
     Inherits the flat layout primitives (the single layout path), so
     coordinator-side resharding (``shard_state`` for init / import, on
     ``device``: ``cuda`` unless the caller asks for the CPU) is
     byte-identical to loopback; the collectives move real bytes between
-    the coordinator and the rank processes, and what the coordinator
-    gathers it holds as CPU tensors.
+    the coordinator and the rank processes (a :class:`RankPool`), and
+    what the coordinator gathers it holds as CPU tensors.
     """
 
     name = "multiproc"
@@ -973,11 +962,9 @@ class MultiProcessSubstrate(LoopbackSubstrate):
                  start_method: str = "spawn",
                  reply_timeout: float = REPLY_TIMEOUT,
                  topology: str = "hub"):
-        super().__init__(planner, M.resolve_device(device))
+        LoopbackSubstrate.__init__(self, planner, M.resolve_device(device))
         self.reply_timeout = reply_timeout
         self.topology = resolve_topology(topology)
-        self.procs: List[mp.process.BaseProcess] = []
-        self.channels: List[Channel] = []
         ctx = mp.get_context(start_method)
         n = len(specs)
         # peer-to-peer data plane: one dedicated duplex pipe per ring
@@ -987,97 +974,19 @@ class MultiProcessSubstrate(LoopbackSubstrate):
         if self.topology == "ring" and n > 1:
             ring_edges = [ctx.Pipe(duplex=True) for _ in range(n)]
         try:
-            for spec in specs:
-                parent, child = ctx.Pipe(duplex=True)
-                args: Tuple = (spec, child)
-                if ring_edges:
-                    r = spec.rank
-                    args = (spec, child, ring_edges[(r - 1) % n][1],
-                            ring_edges[r][0])
-                proc = ctx.Process(target=_worker_main, args=args,
-                                   daemon=True, name=f"cephalo-rank{spec.rank}")
-                proc.start()
-                child.close()
-                self.procs.append(proc)
-                self.channels.append(Channel(parent,
-                                             transport=spec.transport))
+            self.start_ranks(
+                ctx, _worker_main, specs, [s.transport for s in specs],
+                extras=[(ring_edges[(s.rank - 1) % n][1],
+                         ring_edges[s.rank][0]) for s in specs]
+                if ring_edges else None)
             for head, tail in ring_edges:
                 # the workers own the ring ends now; drop our copies
                 head.close()
                 tail.close()
-            for rank in range(self.n):
-                tag, meta, _ = self._recv(rank, phase="startup")
-                if tag != "ready":
-                    raise RuntimeError(
-                        f"rank {rank} failed to start: {tag} {meta}")
+            self.await_ready()
         except Exception:
             self.close()
             raise
-
-    # --- messaging ------------------------------------------------------
-    def _recv(self, rank: int, phase: str = ""
-              ) -> Tuple[str, dict, Dict[str, np.ndarray]]:
-        proc = self.procs[rank]
-        where = f" during {phase}" if phase else ""
-        try:
-            tag, meta, arrays = self.channels[rank].recv(
-                timeout=self.reply_timeout, alive=proc.is_alive)
-        except EOFError as e:
-            raise RuntimeError(
-                f"rank {rank} worker died{where} (exitcode "
-                f"{proc.exitcode})") from e
-        except TimeoutError as e:
-            raise RuntimeError(
-                f"rank {rank} worker gave no reply{where} within "
-                f"{self.reply_timeout:.0f}s") from e
-        if tag == "error":
-            raise RuntimeError(
-                f"rank {rank} worker error{where}:\n"
-                f"{meta.get('traceback')}")
-        return tag, meta, arrays
-
-    def _send(self, rank: int, tag: str, meta: Optional[dict],
-              arrays: Optional[Dict[str, np.ndarray]],
-              phase: str = "") -> None:
-        where = f" during {phase}" if phase else ""
-        try:
-            self.channels[rank].send(tag, meta, arrays)
-        except (OSError, EOFError) as e:
-            raise RuntimeError(
-                f"rank {rank} worker unreachable{where} (exitcode "
-                f"{self.procs[rank].exitcode}): {e!r}") from e
-
-    def request(self, rank: int, tag: str, meta: Optional[dict] = None,
-                arrays: Optional[Dict[str, np.ndarray]] = None,
-                phase: str = "") -> Tuple[dict, Dict[str, np.ndarray]]:
-        """One strict request→reply exchange with one worker."""
-        self._send(rank, tag, meta, arrays, phase=phase or tag)
-        _, r_meta, r_arrays = self._recv(rank, phase=phase or tag)
-        return r_meta, r_arrays
-
-    def request_all(self, tag: str, metas: Optional[List[dict]] = None,
-                    arrays: Optional[List[Optional[dict]]] = None,
-                    ranks: Optional[Sequence[int]] = None,
-                    phase: str = ""
-                    ) -> List[Tuple[dict, Dict[str, np.ndarray]]]:
-        """Fan a request out to ``ranks`` (default: all) and collect the
-        replies **in rank order** — the fixed order every reduction uses,
-        which is what makes the multiproc step numerics match loopback's
-        rank-major accumulation exactly."""
-        ranks = list(ranks) if ranks is not None else list(range(self.n))
-        for i, rank in enumerate(ranks):
-            self._send(rank, tag, metas[i] if metas else None,
-                       arrays[i] if arrays else None,
-                       phase=phase or tag)
-        if arrays:
-            # sent: the list lets go of its payloads while the replies
-            # arrive (full-width flats are gigabytes of host memory)
-            arrays.clear()
-        out = []
-        for rank in ranks:
-            _, meta, arrs = self._recv(rank, phase=phase or tag)
-            out.append((meta, arrs))
-        return out
 
     # --- data-plane accounting -----------------------------------------
     def coordinator_bytes(self, tags: Optional[Sequence[str]] = None
@@ -1128,44 +1037,6 @@ class MultiProcessSubstrate(LoopbackSubstrate):
                          arrays=[{u: t.numpy() for u, t in slices[r].items()}
                                  for r in range(self.n)],
                          phase="reduce_scatterv(G)")
-
-    # --- lifecycle ------------------------------------------------------
-    def close(self) -> None:
-        """Shut the rank fleet down.  Idempotent; a worker that died (or
-        goes silent) during teardown is *reported* via ``warnings.warn``
-        — never silently swallowed — and then reaped with terminate."""
-        for rank, ch in enumerate(self.channels):
-            proc = self.procs[rank]
-            try:
-                if proc.is_alive():
-                    ch.send("exit")
-                    ch.recv(timeout=5.0, alive=proc.is_alive)
-            except (EOFError, OSError, TimeoutError) as e:
-                warnings.warn(
-                    f"rank {rank} worker did not acknowledge exit "
-                    f"(exitcode {proc.exitcode}): {e!r}; terminating it",
-                    RuntimeWarning)
-        for rank, proc in enumerate(self.procs):
-            proc.join(timeout=5.0)
-            if proc.is_alive():
-                warnings.warn(
-                    f"rank {rank} worker (pid {proc.pid}) survived exit; "
-                    "sending SIGTERM", RuntimeWarning)
-                proc.terminate()
-                proc.join(timeout=5.0)
-        for ch in self.channels:
-            ch.close()
-        self.channels = []
-        self.procs = []
-
-    def __del__(self):   # best-effort backstop; close() is the real API
-        try:
-            self.close()
-        except Exception:   # noqa: BLE001 - interpreter-shutdown races
-            # (modules half-torn-down, warnings machinery gone) make any
-            # reporting here unreliable; close() itself warns when
-            # invoked normally, so the backstop stays silent by design.
-            pass
 
 
 class ProcessEngine(TrainEngine):

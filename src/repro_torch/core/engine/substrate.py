@@ -10,19 +10,26 @@ one process: full-tree reassembly from per-rank ragged shards (AllGatherv
 semantics, zero padding overhead) and full-grad → per-rank-slice scatter.
 Shards are torch tensors on the engine's device.  It counts collective
 *events* (``stats``) so tests can assert a schedule's round structure.
-The in-graph ``shard_map`` substrate is not ported (ROADMAP queue 1, item
-10).
+
+:class:`ShardMapSubstrate` runs the SPMD runtime's collectives inside
+each rank process of a :class:`~repro_torch.core.engine.world.World`:
+the forward AllGather and the backward ReduceScatter are one
+differentiable gather (``fsdp.make_mixed_gather``) with independent
+forward / backward precision, plus the HSDP replica all-reduce.  Its
+``stats`` count each collective as it runs, so they are exact — where
+the reference's, inside a traced program, would count tracing, not
+execution.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core import fsdp
-from repro_torch.core.engine.units import UnitPlanner
+from repro_torch.core.engine.units import UnitGroup, UnitPlanner
 
 
 class CollectiveSubstrate(abc.ABC):
@@ -36,6 +43,47 @@ class CollectiveSubstrate(abc.ABC):
     def reset_stats(self) -> None:
         for k in self.stats:
             self.stats[k] = 0
+
+
+class ShardMapSubstrate(CollectiveSubstrate):
+    """Per-rank collectives of the SPMD runtime.
+
+    ``state_group`` — the process group the state is sharded over (ZeRO-3
+    over the whole world by default); ``replica_group`` — HSDP: the group
+    the state is replicated over, whose gradient all-reduce rides on the
+    gather's backward.  ``comm`` is the rank's
+    :class:`~repro_torch.core.engine.world.Comm`.
+    """
+
+    name = "shard_map"
+
+    def __init__(self, state_group, comm, replica_group=None,
+                 gather_dtype: torch.dtype = torch.float32,
+                 grad_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stats["all_reduce"] = 0
+        self.state_group = state_group
+        self.replica_group = replica_group
+        self.comm = comm
+        self.gather_dtype = gather_dtype
+        self.grad_dtype = grad_dtype
+
+    def unit_gather_fn(self, group: UnitGroup) -> Callable[[torch.Tensor],
+                                                           Any]:
+        """``(P_max,)`` local shard → the unit's full param tree in
+        ``gather_dtype`` (views of one gathered buffer).  Differentiable:
+        the backward is one ReduceScatter of the cotangent (plus the HSDP
+        replica all-reduce) — the schedule's per-round collective pair."""
+        fn = fsdp.make_mixed_gather(group.layout, self.state_group,
+                                    self.comm, self.gather_dtype,
+                                    self.grad_dtype,
+                                    replica_group=self.replica_group,
+                                    stats=self.stats)
+
+        def gather(shard: torch.Tensor) -> Any:
+            return fsdp.unflatten_unit(group.layout, fn(shard))
+
+        return gather
 
 
 class LoopbackSubstrate(CollectiveSubstrate):

@@ -9,6 +9,8 @@ plan ``python -m repro_torch.launch.train`` trains).
         --cluster cluster-a --batch 128
     python -m repro_torch.launch.profile_train --arch mamba2-370m \
         --seq 2048 --cluster cluster-a --batch 32
+    python -m repro_torch.launch.profile_train --arch gpt-1.3b --seq 512 \
+        --runtime spmd --batch 16 --ell 4
 
 Needs a CUDA device.  After one warm-up step, the step runs twice: once
 bare, for the host wall time, and once under the profiler, for the device
@@ -17,7 +19,10 @@ JSON line: wall ms, device ms, the device's idle share, device ms by kind
 (flash attention forward and backward, the SSD scan forward and backward,
 matrix products, copies and casts, the other elementwise work: norms,
 activations, the conv, the loss, Adam) and the kernels that took most of
-it.
+it.  With ``--runtime spmd`` the step is the SPMD engine's at the
+launcher's geometry (``launch.train.spmd_world``: one rank per card), and
+the window runs inside rank 0's process (kind ``collective`` for the NCCL
+kernels).
 """
 
 from __future__ import annotations
@@ -30,12 +35,16 @@ import torch
 
 from repro_torch.configs.base import get_arch
 from repro_torch.core.cost_model import analytic_cluster_model
+from repro_torch.core import layered_ga
 from repro_torch.core.engine import build_train_step
+from repro_torch.core.engine.world import Payload
 from repro_torch.core.model_stats import build_model_stats
 from repro_torch.core.partition import Plan, RankPlan
 from repro_torch.core.planner import auto_solve
-from repro_torch.data.pipeline import DataConfig, SyntheticStream
+from repro_torch.data.pipeline import (DataConfig, SyntheticStream,
+                                       plan_grid_from_block)
 from repro_torch.launch import profile_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.launch.train import CLUSTERS
 
 #: two ranks on the one card: (device, m, ell, state ratio)
@@ -52,6 +61,8 @@ def _kind(name: str) -> str:
     if kind != "other":
         return kind
     low = name.lower()
+    if "nccl" in low:
+        return "collective"
     return "copy" if any(m in low for m in _COPY_MARKS) else "elementwise"
 
 
@@ -94,6 +105,42 @@ def run(arch: str, seq: int, schedule: str, seed: int,
     return out
 
 
+def rank_profile(ctx, top: int, batch: Payload) -> dict:
+    """Inside an SPMD rank: the profiler's window over this rank's step
+    (``layered_ga.rank_step``) on ``batch``, taken twice (bare, then
+    profiled)."""
+    return profile_serve._window(
+        "spmd_step", lambda: layered_ga.rank_step(ctx, batch), top,
+        kind=_kind)
+
+
+def run_spmd(arch: str, seq: int, schedule: str, seed: int, batch: int,
+             ell: int, top: int = 16):
+    """One SPMD step profiled in rank 0, after a warm-up step, at the
+    launcher's ``--runtime spmd`` geometry."""
+    args = launch_train.parser().parse_args([
+        "--arch", arch, "--seq", str(seq), "--batch", str(batch),
+        "--ell", str(ell), "--runtime", "spmd"])
+    mesh, plan = launch_train.spmd_world(args)
+    cfg = get_arch(arch)
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, seq, seed=seed))
+    with build_train_step(cfg, plan, substrate="shard_map",
+                          schedule=schedule, mesh=mesh,
+                          seq_len=seq) as engine:
+        state = engine.init_state(
+            torch.Generator(device="cuda").manual_seed(seed))
+        engine.step(state, stream.sample(0, plan.global_batch))
+        grid = plan_grid_from_block(plan, stream.sample(
+            1, plan.global_batch))
+        out = engine.world.call(rank_profile, (top,), per_rank=[
+            Payload(None, {k: v[r] for k, v in grid.items()})
+            for r in range(plan.n)])[0]
+    out.update(arch=arch, seq=seq, schedule=schedule, runtime="spmd",
+               mesh=mesh.shape, global_batch=plan.global_batch,
+               ell=plan.ranks[0].ell, m=plan.ranks[0].m)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt-1.3b")
@@ -104,10 +151,19 @@ def main() -> None:
                     help="profile the plan the planner solves for this "
                          "cluster (default: the two-rank plan above)")
     ap.add_argument("--batch", type=int, default=128,
-                    help="global batch of the planned step (--cluster)")
+                    help="global batch of the planned step (--cluster, "
+                         "--runtime spmd)")
+    ap.add_argument("--runtime", choices=("mpmd", "spmd"), default="mpmd")
+    ap.add_argument("--ell", type=int, default=1,
+                    help="microbatches a rank (--runtime spmd)")
     args = ap.parse_args()
-    print(json.dumps(run(args.arch, args.seq, args.schedule, args.seed,
-                         args.cluster, args.batch)), flush=True)
+    if args.runtime == "spmd":
+        out = run_spmd(args.arch, args.seq, args.schedule, args.seed,
+                       args.batch, args.ell)
+    else:
+        out = run(args.arch, args.seq, args.schedule, args.seed,
+                  args.cluster, args.batch)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

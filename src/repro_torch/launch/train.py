@@ -1,12 +1,18 @@
-"""Training launcher: plan a heterogeneous cluster, then train on the plan.
+"""Training launcher: both runtimes go through the execution engine.
 
-The port of ``repro.launch.train`` for ``--runtime mpmd``: builds the
-analytic cost model of ``--cluster`` for the model, runs the Cephalo
-planner (``auto_solve``), prints the plan, then trains with truly uneven
-per-rank batches and state shards through ``build_train_step``: every
-rank of the plan runs on the one device, ``cuda`` unless ``--device
+The port of ``repro.launch.train``.  ``--runtime mpmd`` (the default)
+builds the analytic cost model of ``--cluster`` for the model, runs the
+Cephalo planner (``auto_solve``), prints the plan, then trains with truly
+uneven per-rank batches and state shards through ``build_train_step``:
+every rank of the plan runs on the one device, ``cuda`` unless ``--device
 cpu`` is asked for.  ``--ga-mode`` selects any registered
-gradient-accumulation schedule.
+gradient-accumulation schedule, on either runtime.
+
+``--runtime spmd`` is the Cephalo SPMD step (:func:`run_spmd`): the world
+has one rank per card (``torch.cuda.device_count()``), or one rank with
+``--device cpu``, on the mesh ``(n//2, 2)`` or ``(n, 1)`` with an even
+plan of ``--ell`` microbatches a rank, through ``build_train_step(...,
+substrate="shard_map")``; ``--checkpoint`` saves the exported state.
 
 ``--substrate multiproc`` runs the ranks as a fleet of worker processes
 (``--nprocs`` sizes it; ``--topology hub|ring``, default
@@ -26,10 +32,9 @@ processes' wall clocks (``WallClockOracle``) on a fleet.  ``--straggler
 RANK:FACTOR@STEP`` injects a slowdown mid-run (``2:3.0@2`` makes rank 2
 three times slower from step 2; on a fleet its worker actually sleeps).
 After the run the launcher prints each replan event and, if it changed,
-the final plan; ``--checkpoint`` saves the final plan.
-
-Not ported yet, and refused with the ROADMAP item that ports it:
-``--runtime spmd`` (queue 1, item 10).
+the final plan; ``--checkpoint`` saves the final plan.  As in the
+reference, ``--elastic``, ``--straggler``, ``--substrate`` and
+``--nprocs`` are refused with ``--runtime spmd``.
 
 Example (CPU, small model)::
 
@@ -61,6 +66,18 @@ and reduced, on the CPU::
         --reduced --seq 64 --batch 32 --cluster cluster-a --steps 3 \
         --device cpu
 
+gpt-1.3b at full width and depth through the SPMD runtime, one rank on
+the one card (NCCL), 4 microbatches of 4::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \
+        --seq 512 --batch 16 --ell 4 --runtime spmd --steps 4
+
+and reduced, on the CPU::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-llama \
+        --reduced --steps 3 --batch 12 --seq 32 --runtime spmd --ell 2 \
+        --device cpu
+
 gpt-1.3b at full width on Cluster A's plan, rank 2 three times slower
 from step 2: the replan after the third step sheds its batch::
 
@@ -82,7 +99,9 @@ from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.core import device_specs as D
 from repro_torch.core.cost_model import (ClusterCostModel,
                                          analytic_cluster_model)
-from repro_torch.core.engine import build_train_step, list_schedules
+from repro_torch.core.engine import (build_train_step, homogeneous_plan,
+                                     list_schedules)
+from repro_torch.core.engine import world as W
 from repro_torch.core.engine.transport import resolve_topology
 from repro_torch.core.model_stats import build_model_stats
 from repro_torch.core.partition import Plan
@@ -98,10 +117,12 @@ CLUSTERS = {
                               link_gbps=50, name="mini"),
 }
 
-_ITEM_10 = "not ported yet: ROADMAP queue 1, item 10 (SPMD runtime)"
 
-
-def _train_loop(engine, args, plan, state=None, on_step=None) -> object:
+def _train_loop(engine, args, plan, state=None, on_step=None,
+                after_step=None) -> object:
+    """``--steps`` steps of ``engine`` on ``SyntheticStream`` blocks, from
+    ``state`` or a fresh one; ``on_step(step)`` runs before each step,
+    ``after_step(step, loss)`` after it."""
     stream = SyntheticStream(DataConfig(engine.cfg.vocab_size, args.seq,
                                         seed=args.seed))
     if state is None:
@@ -115,6 +136,8 @@ def _train_loop(engine, args, plan, state=None, on_step=None) -> object:
             on_step(step)
         big = stream.sample(step, plan.global_batch)
         state, loss = engine.step(state, big)
+        if after_step is not None:
+            after_step(step, loss)
         if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
             print(f"step {step:>5} loss {float(loss):.4f} "
                   f"({time.perf_counter() - t0:.1f}s wall)")
@@ -245,20 +268,68 @@ def run_mpmd(args) -> None:
                 print(engine.plan.summary())
             final_plan = engine.plan
         if args.checkpoint:
-            from repro_torch.checkpoint import checkpointing as C
             if args.substrate == "multiproc":
                 # worker-held shards → the substrate-independent
                 # exported trees, as the reference saves them
-                exported = engine.export_state(state)
-                C.save(args.checkpoint, args.steps,
-                       [{k: exported[k] for k in ("p", "m", "v")}],
-                       {"step": exported["step"]},
-                       meta={"plan": final_plan.to_json(),
-                             "format": "exported"})
+                _save_exported(args, engine, state, final_plan)
             else:
+                from repro_torch.checkpoint import checkpointing as C
                 C.save(args.checkpoint, args.steps, state, {},
                        meta={"plan": final_plan.to_json()})
-            print(f"saved checkpoint to {args.checkpoint}")
+                print(f"saved checkpoint to {args.checkpoint}")
+
+
+def _save_exported(args, engine, state, plan: Plan) -> None:
+    """``--checkpoint``: the engine's exported trees (its shards live in
+    other processes), as the reference saves a fleet's."""
+    from repro_torch.checkpoint import checkpointing as C
+    exported = engine.export_state(state)
+    C.save(args.checkpoint, args.steps,
+           [{k: exported[k] for k in ("p", "m", "v")}],
+           {"step": exported["step"]},
+           meta={"plan": plan.to_json(), "format": "exported"})
+    print(f"saved checkpoint to {args.checkpoint}")
+
+
+def spmd_world(args) -> Tuple[W.Mesh, Plan]:
+    """The SPMD launcher's geometry, as the reference sizes it from the
+    device count: one rank per card on ``cuda``, one with ``--device
+    cpu``; the mesh ``(n//2, 2)`` or ``(n, 1)`` (``(1, 1)`` for one); an
+    even plan of ``--ell`` microbatches of ``--batch // n // --ell``
+    rows a rank."""
+    n = W.device_count(args.device)
+    if n < 1:
+        M.resolve_device(args.device)       # raises: no CUDA
+    shape = {1: (1, 1)}.get(n) or ((n // 2, 2) if n % 2 == 0 else (n, 1))
+    per_dev = max(args.batch // n, 1)
+    plan = homogeneous_plan(n, ell=args.ell,
+                            m=max(per_dev // args.ell, 1), device="host")
+    return W.Mesh(shape, ("data", "model")), plan
+
+
+def run_spmd(args) -> list:
+    """Train ``--steps`` steps through the SPMD runtime; returns each
+    step's record: the loss, the controller's step ms, and every rank's
+    record (:attr:`SpmdEngine.last_step`)."""
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    mesh, plan = spmd_world(args)
+    print(f"spmd: mesh {mesh.shape} {mesh.axis_names}, "
+          f"{plan.n} rank(s) on {args.device}, ell {plan.ranks[0].ell}, "
+          f"m {plan.ranks[0].m}, global batch {plan.global_batch}")
+    records = []
+    engine = build_train_step(cfg, plan, schedule=args.ga_mode,
+                              substrate="shard_map", mesh=mesh,
+                              adam=AdamConfig(lr=args.lr),
+                              seq_len=args.seq, device=args.device)
+    with engine:
+        state = _train_loop(engine, args, plan, after_step=lambda _, loss: (
+            records.append({"loss": loss, "step_ms": engine.step_ms,
+                            "ranks": engine.last_step})))
+        if args.checkpoint:
+            _save_exported(args, engine, state, plan)
+    return records
 
 
 def parser() -> argparse.ArgumentParser:
@@ -304,15 +375,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("--elastic/--straggler require --runtime mpmd "
                          "(the replanning loop drives the planner, which "
                          "the homogeneous SPMD launcher bypasses)")
-    if args.runtime == "spmd":
-        raise SystemExit(f"--runtime spmd is {_ITEM_10}")
+    if args.runtime != "mpmd" and (args.substrate != "loopback"
+                                   or args.nprocs):
+        raise SystemExit("--substrate/--nprocs apply to --runtime mpmd")
     if args.straggler and not args.elastic:
         raise SystemExit("--straggler needs --elastic")
     if args.straggler:
         _parse_straggler(args.straggler)
     _substrate_knobs(args)      # a flag error exits before any work
     M.resolve_device(args.device)
-    run_mpmd(args)
+    if args.runtime == "spmd":
+        run_spmd(args)
+    else:
+        run_mpmd(args)
 
 
 if __name__ == "__main__":

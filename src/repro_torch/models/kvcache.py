@@ -42,8 +42,8 @@ def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_new/v_new: (B, 1, KV, hd); positions: (B,) absolute positions.
     ``cache_total`` is the cache length (= window for ring buffers).
     Returns the updated tensors, which are the ones passed in.  (The JAX
-    package's ``shard_start`` belongs to sequence-sharded decode, which is
-    not ported yet.)
+    package's ``shard_start`` belongs to sequence-sharded decode, ROADMAP
+    queue 1 item 11.)
     """
     idx = positions % cache_total
     b_idx = torch.arange(pos_arr.shape[0], device=pos_arr.device)

@@ -42,7 +42,8 @@ from repro.optim.adam import AdamConfig as JaxAdam
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import fsdp
-from repro_torch.core.engine import (LoopbackSubstrate, MultiProcessSubstrate,
+from repro_torch.core.engine import (LoopbackSubstrate, Mesh,
+                                     MultiProcessSubstrate,
                                      UnitPlanner, build_train_step,
                                      get_schedule, homogeneous_plan,
                                      list_schedules)
@@ -218,8 +219,10 @@ def test_engine_init_state_and_substrates():
     for g in eng.trainer.groups:
         assert sizes[g.name] == g.layout.shard_sizes[0]
         assert not state[0][g.name]["m"].any()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_train_step(cfg, plan, substrate="shard_map", device="cpu")
+    # the SPMD engine checks its mesh against the plan before it spawns
+    with pytest.raises(ValueError, match="mesh"):
+        build_train_step(cfg, plan, substrate="shard_map", device="cpu",
+                         mesh=Mesh((3,), ("data",)))
     # the process fleet refuses a bad knob before it spawns a worker
     with pytest.raises(ValueError, match="ring"):
         build_train_step(cfg, plan, substrate="multiproc", device="cpu",

@@ -194,7 +194,8 @@ def test_train_loops_agree_from_the_same_state(capsys):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--runtime", "spmd"], "item 10"),
+    (["--runtime", "spmd", "--substrate", "multiproc"],
+     "--substrate/--nprocs apply to --runtime mpmd"),
     (["--substrate", "multiproc", "--topology", "ring", "--straggler",
       "0:2.0@1"], "--straggler needs --elastic"),
     (["--straggler", "1:3.0@1"], "--straggler needs --elastic"),
@@ -204,9 +205,9 @@ def test_train_loops_agree_from_the_same_state(capsys):
     (["--runtime", "spmd", "--straggler", "1:3.0@1"],
      "require --runtime mpmd")])
 def test_refused_flags_exit_with_their_reason(flags, message):
-    """The SPMD runtime exits with its ROADMAP item; the elastic flags'
-    misuses exit with the reference's messages, on the process fleet
-    too, before a worker spawns."""
+    """The SPMD runtime refuses the MPMD substrate's flags; the elastic
+    flags' misuses exit with the reference's messages, on the process
+    fleet too, before a worker spawns."""
     with pytest.raises(SystemExit, match=message):
         launch.main(ARGV + ["--device", "cpu"] + flags)
 
