@@ -222,7 +222,8 @@ Phases, each printing one JSON line:
              with wall-clock telemetry: gpt-1.3b at full width on 4 of its
              24 layers (a replan holds two fleets), two worker processes
              on a ring (pipe plane, comm sanitizer armed), the plan
-             ``solve_plan`` solves from wall-clock models, batch 16, the
+             ``solve_plan`` solves from wall-clock models for two H100s
+             on NVLink (``--cluster h100``), batch 16, the
              ``WallClockOracle``; rank 0's worker three times slower from
              step 2, until two steps after the first adopted replan (at
              most 10).  An adopted replan must shed batch off rank
@@ -297,7 +298,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.checkpoint import checkpointing  # noqa: E402
-from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.configs.base import InputShape, get_arch  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import fsdp  # noqa: E402
 from repro_torch.core import device_specs  # noqa: E402
@@ -309,7 +310,9 @@ from repro_torch.core.engine import verify  # noqa: E402
 from repro_torch.core.engine import world as spmd_world  # noqa: E402
 from repro_torch.core.engine.verify import cli as verify_cli  # noqa: E402
 from repro_torch.core.engine.schedules import get_schedule  # noqa: E402
-from repro_torch.core.engine.units import UnitPlanner  # noqa: E402
+from repro_torch.core.engine.units import (  # noqa: E402
+    UnitPlanner, normalized_ratios)
+from repro_torch.core.layered_ga import CephaloProgram  # noqa: E402
 from repro_torch.core.partition import Plan, RankPlan  # noqa: E402
 from repro_torch.core.planner import auto_solve  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
@@ -320,11 +323,14 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_scan_backward_reference, ssd_scan_reference)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import serving  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import moe  # noqa: E402
 from repro_torch.optim.adam import AdamConfig  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of the tensor cores (bf16) and of the fp32 pipe
@@ -515,12 +521,16 @@ ELASTIC_LEAVER = 7
 # replan holds two fleets at once: two at full depth do not fit the
 # card), two worker processes on a ring, the pipe plane, the comm
 # sanitizer armed, the plan from wall-clock models as the launcher
-# solves it, rank 0 three times slower (its worker sleeps) from step 2;
-# it runs until two steps after the first adopted replan, at most --steps
+# solves it for two H100s on NVLink (the card the workers run on: on
+# Cluster A's modelled 50 Gbps link a layer's AllGather and ReduceScatter
+# take longer than either rank's compute, so the plan is one of many that
+# tie and a straggler changes the predicted step only now and then),
+# rank 0 three times slower (its worker sleeps) from step 2; it runs
+# until two steps after the first adopted replan, at most --steps
 ELASTIC_MP_LAYERS = 4
 ELASTIC_MP_AFTER = 2
 ELASTIC_MP_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ),
-                   "--batch", "16", "--cluster", "cluster-a",
+                   "--batch", "16", "--cluster", "h100",
                    "--substrate", "multiproc", "--nprocs", "2",
                    "--topology", "ring", "--elastic", "--straggler",
                    "0:3.0@2", "--steps", "10"]
@@ -544,6 +554,22 @@ SHARED_LOSS_TOL, SHARED_P_TOL = 1e-4, 2e-4   # tests/test_parity_matrix.py
 # Adam's first moment after the step, (1 - b1) g, against the loopback's,
 # relative in the 2-norm of each leaf: fp32 grads summed in another order
 SHARED_M_TOL = 1e-4
+# phase serve_seqshard: stablelm-1.6b at full width and depth serves
+# SEQSHARD_BATCH x SEQSHARD_PROMPT tokens and SEQSHARD_GEN greedy ones
+# (the first from the prefill), its KV cache of prompt + gen slots split
+# along the sequence over the two ranks of mesh (1, 2), which share the
+# card (gloo over pinned host copies); each decode step's logits held
+# against the unsharded decode within SEQSHARD_TOL of max|logits| (fp32);
+# the timed bf16 decode's logits against the unsharded fp32 ones within
+# SEQSHARD_BF16_TOL, on each step whose fed tokens agree: the bf16 decode
+# drifted 1.95% from the bf16 unsharded one (24 random-weight layers);
+# the phase measures how far one shard alone (the other dropped) moves
+# the first step's logits, and fails unless that exceeds this limit
+SEQSHARD_ARCH = "stablelm-1.6b"
+SEQSHARD_BATCH, SEQSHARD_PROMPT, SEQSHARD_GEN = 2, 8192, 16
+SEQSHARD_MESH = spmd_world.Mesh((1, 2), ("data", "model"))
+SEQSHARD_TOL = 2e-3
+SEQSHARD_BF16_TOL = 6e-2
 
 
 CARD: list = []     # the card's name and power limit (phase device)
@@ -555,6 +581,20 @@ def emit(obj) -> None:
     if "phase" in obj and CARD:
         obj = {**obj, "card": CARD[0]}
     print(json.dumps(obj), flush=True)
+
+
+def _roofline(cfg, kind: str, seq: int, batch: int,
+              measured_s: float) -> dict:
+    """The H100's roofline terms (``repro_torch.roofline``, one card: no
+    tensor parallelism, no collectives on the wire) of a ``kind`` step of
+    ``batch`` sequences of ``seq`` tokens (the cache's length for a
+    decode token) beside the measured seconds; printed, not a gate."""
+    t = roofline.terms_for(cfg, InputShape(kind, seq, batch, kind), 1,
+                           model_par=1)
+    return {"compute_s": t.compute_s, "memory_s": t.memory_s,
+            "collective_s": t.collective_s, "dominant": t.dominant,
+            "bound_s": t.bound_s, "measured_s": measured_s,
+            "measured_over_bound": measured_s / t.bound_s}
 
 
 def phase_device() -> dict:
@@ -1105,6 +1145,11 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_s": res["decode_s"],
           "decode_tok_s": res["decode_tok_s"], "peak_mem_gib": peak / 2**30,
+          "roofline_prefill": _roofline(cfg, "prefill", prompt, batch,
+                                        res["prefill_s"]),
+          "roofline_decode_token": _roofline(
+              cfg, "decode", prompt + gen, batch,
+              res["decode_s"] / max(gen - 1, 1)),
           "kernel_launches": launches, "variants": variants,
           "tokens_seq0": toks[0].tolist()})
     del model, res, fe
@@ -2730,12 +2775,16 @@ def phase_train_elastic_multiproc() -> dict:
             engine.close()
     events = engine.events
     adopted = [e for e in events if e.adopted]
+    slow, fast = (cm_end.per_rank[r].t_fwd.one(1) for r in (0, 1))
     if not adopted or not \
             adopted[0].new_plan.ranks[0].b < plan0.ranks[0].b:
-        raise AssertionError(f"train_elastic_multiproc: no adopted replan "
-                             f"that sheds rank 0: "
-                             f"{[_event(e) for e in events]}")
-    slow, fast = (cm_end.per_rank[r].t_fwd.one(1) for r in (0, 1))
+        raise AssertionError(
+            f"train_elastic_multiproc: no adopted replan that sheds rank 0: "
+            f"{[_event(e) for e in events]}; the first plan's (b, m, "
+            f"t_fwd_s, t_bwd_s) "
+            f"{[(r.b, r.m, r.t_fwd_s, r.t_bwd_s) for r in plan0.ranks]}, "
+            f"refit t_fwd(1) {slow}, {fast}; step ms "
+            f"{[round(r['ms'], 1) for r in records]}")
     if not slow > 2.0 * fast:
         raise AssertionError(f"train_elastic_multiproc: refit t_fwd(1) "
                              f"rank 0 {slow}, rank 1 {fast}")
@@ -2863,6 +2912,39 @@ def _check_spmd_step(phase: str, rec: list, launches: dict,
     return got
 
 
+def _check_spmd_dryrun(cfg, mesh, plan, args, records) -> dict:
+    """Each rank's p, m and v bytes must be the memory dry-run's for the
+    same program (``launch.dryrun.state_bytes`` of a ``CephaloProgram`` on
+    the mesh alone), exactly; its collectives of each step the roofline
+    analogue's (``roofline.program_collectives``): the counts, the padded
+    bytes exactly, the unpadded no more than the run's."""
+    prog = CephaloProgram(
+        cfg, mesh, ratios=[float(r) for r in
+                           normalized_ratios(plan.state_ratios())],
+        ell=max(plan.ell_pad, 1), m=max(plan.m_pad, 1), seq=args.seq,
+        schedule=args.ga_mode)
+    state = {k: v for k, v in dryrun.state_bytes(prog).items() if k != "step"}
+    coll = roofline.program_collectives(prog)
+    bytes_want = {k: int(v) for k, v in coll.bytes_by_op.items()}
+    floor = roofline.program_collectives(prog, padded=False).bytes_by_op
+    for i, rec in enumerate(records):
+        for r in rec["ranks"]:
+            if r["state_bytes"] != state:
+                raise AssertionError(f"train_spmd step {i + 1}: the rank's "
+                                     f"state bytes {r['state_bytes']}, the "
+                                     f"dry-run's {state}")
+            got = r["collective_bytes"]
+            if r["collectives"] != coll.counts or got != bytes_want or \
+                    any(got[k] < floor[k] for k in floor):
+                raise AssertionError(
+                    f"train_spmd step {i + 1}: collectives "
+                    f"{r['collectives']}, {got} B; the analytic "
+                    f"{coll.counts}, {bytes_want} B (unpadded {floor})")
+    return {"state_bytes": state, "collectives": coll.counts,
+            "collective_bytes": bytes_want,
+            "collective_bytes_unpadded": floor}
+
+
 def phase_train_spmd() -> dict:
     """The launcher's ``--runtime spmd`` (``launch.train.run_spmd``) on
     gpt-1.3b at full width and depth: the world sized from the card count
@@ -2893,6 +2975,7 @@ def phase_train_spmd() -> dict:
     for i, rec in enumerate(records[1:]):
         _check_spmd_step(f"train_spmd step {i + 1}", rec["ranks"], want,
                          colls, "nccl")
+    dry = _check_spmd_dryrun(cfg, mesh, plan, args, records[1:])
     losses = [rec["loss"] for rec in records]
     step_ms = [rec["step_ms"] for rec in records[1:]]
     # the loopback engine on the same plan, blocks and seed
@@ -2943,10 +3026,160 @@ def phase_train_spmd() -> dict:
           "collectives_per_step": rank["collectives"],
           "loopback": {"losses": ref, "step_ms": ref_ms,
                        "mean_step_ms": float(np.mean(ref_ms))},
-          "loss_rel_diff": rel, "tolerance": SPMD_REL_TOL})
+          "loss_rel_diff": rel, "tolerance": SPMD_REL_TOL,
+          "dryrun": dry,
+          "roofline_step": _roofline(cfg, "train", args.seq,
+                                     plan.global_batch, mean_ms / 1e3)})
     return {k: rank["launches"][k] for k in ("flash_attention",
                                              "flash_bwd_dq",
                                              "flash_bwd_dkdv")}
+
+
+def phase_serve_seqshard() -> dict:
+    """stablelm-1.6b at full width and depth through
+    ``launch.serving.serve_sharded``: SEQSHARD_BATCH x SEQSHARD_PROMPT
+    prompt tokens, SEQSHARD_GEN greedy tokens, the KV cache split along
+    the sequence over the two ranks of SEQSHARD_MESH, which share the card
+    (gloo over pinned host copies: a check of correctness, not of a
+    cross-card path).  Each rank draws the weights from one seed on the
+    card, runs the whole prefill through the flash kernel, keeps its
+    slots and decodes greedily in bf16 across the split.  Then the check,
+    in fp32 (TF32 off) on fp32 copies of the weights and the prefilled
+    caches, the port's parity rule on the card: rank 0 decodes on the
+    whole cache and every rank's sharded decode is teacher-forced on its
+    tokens.  Fails unless every step's logits on every rank are within
+    SEQSHARD_TOL of max|logits| of the unsharded ones, the greedy tokens
+    agree wherever the unsharded top-2 margin exceeds that bound, each
+    rank's bf16 tokens are the same, the bf16 decode's logits are within
+    SEQSHARD_BF16_TOL of the unsharded fp32 ones on every step whose fed
+    tokens agree (the first at least), the first step merged over one
+    shard alone moves them by more than that limit, each rank's prefill
+    launched the
+    flash kernel once a layer (``bf16-mma``) and nothing else, and each
+    rank's KV shard holds the memory dry-run's per-rank cache bytes for
+    (stablelm-1.6b, that batch and cache length, mesh (1, 2)), exactly.
+    Returns each rank's flash launches."""
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise AssertionError(f"serve_seqshard: {held} B still held by "
+                             f"earlier phases")
+    cfg = get_arch(SEQSHARD_ARCH)
+    place = spmd_world.placement("cuda", SEQSHARD_MESH.size)
+    if (place.backend, place.staged) != ("gloo", True):
+        raise AssertionError(f"serve_seqshard: {place}")
+    batch, prompt, gen = SEQSHARD_BATCH, SEQSHARD_PROMPT, SEQSHARD_GEN
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (batch, prompt))
+    t0 = time.perf_counter()
+    out = serving.serve_sharded(cfg, prompts, gen, SEQSHARD_MESH, "cuda",
+                                seed=0, check=True)
+    run_s = time.perf_counter() - t0
+    _progress("serve_seqshard", t0)
+    whole = out[0].arrays["whole_logits"]     # fp32, (gen - 1, B, V)
+    # the tokens each step of the unsharded decode was fed, (gen - 1, B)
+    fed = out[0].arrays["whole_tokens"][:, :-1].T
+    cache = dryrun.serving_bytes(cfg, SEQSHARD_MESH, batch, prompt + gen)
+    want = {"flash_attention": cfg.n_layers,
+            "flash_attention/bf16-mma": cfg.n_layers}
+    errs, agree, bf16_errs, dropped_errs, bf16_steps = [], 0, [], [], 0
+    top2 = np.sort(whole, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    for p in out:
+        logits, meta = p.arrays["check_logits"], p.meta
+        if not np.array_equal(p.arrays["tokens"], out[0].arrays["tokens"]):
+            raise AssertionError(f"serve_seqshard rank {meta['rank']}: bf16 "
+                                 f"tokens differ from rank 0's")
+        if logits.shape != whole.shape or not np.isfinite(logits).all():
+            raise AssertionError(f"serve_seqshard rank {meta['rank']}: "
+                                 f"logits {logits.shape}, finite "
+                                 f"{np.isfinite(logits).all()}")
+        for i in range(whole.shape[0]):
+            scale = float(np.abs(whole[i]).max())
+            bound = SEQSHARD_TOL * scale
+            err = float(np.abs(logits[i] - whole[i]).max())
+            errs.append(err / scale)
+            if not err <= bound:
+                raise AssertionError(f"serve_seqshard rank {meta['rank']} "
+                                     f"step {i}: logits differ by {err} > "
+                                     f"{bound}")
+            sure = margin[i] > bound
+            if not (logits[i].argmax(-1) == whole[i].argmax(-1))[sure].all():
+                raise AssertionError(f"serve_seqshard rank {meta['rank']} "
+                                     f"step {i}: greedy tokens differ")
+            agree += int(sure.sum())
+        # the bf16 decode, on the steps whose fed tokens so far agree
+        r = slice(*meta["rows"])
+        same = np.cumprod(p.arrays["tokens"][:, :-1].T == fed[:, r], axis=0)
+        for i in range(whole.shape[0]):
+            rows = same[i].astype(bool)
+            if not rows.any():
+                continue
+            scale = float(np.abs(whole[i]).max())
+            err = float(np.abs(p.arrays["logits"][i][rows] -
+                               whole[i][r][rows]).max()) / scale
+            bf16_errs.append(err)
+            bf16_steps += 1
+            if not err <= SEQSHARD_BF16_TOL:
+                raise AssertionError(
+                    f"serve_seqshard rank {meta['rank']} step {i}: bf16 "
+                    f"logits differ by {err} of max|logits| > "
+                    f"{SEQSHARD_BF16_TOL}")
+        dropped = float(np.abs(p.arrays["dropped_logits"] - whole[0][r]
+                               ).max()) / float(np.abs(whole[0]).max())
+        dropped_errs.append(dropped)
+        if not dropped > SEQSHARD_BF16_TOL:
+            raise AssertionError(
+                f"serve_seqshard rank {meta['rank']}: one shard alone moves "
+                f"the logits by {dropped} of max|logits|, within the bf16 "
+                f"limit {SEQSHARD_BF16_TOL}")
+        got = {k: n for k, n in meta["launches"].items() if n}
+        if got != want:
+            raise AssertionError(f"serve_seqshard rank {meta['rank']}: "
+                                 f"prefill launches {got}, expected {want}")
+        if meta["kv_bytes"] != cache["cache"]:
+            raise AssertionError(f"serve_seqshard rank {meta['rank']}: KV "
+                                 f"shard {meta['kv_bytes']} B, the dry-run's "
+                                 f"{cache['cache']} B")
+    steps = gen - 1
+    meta0 = out[0].meta
+    shard_s = max(p.meta["decode_s"] for p in out)
+    emit({"phase": "serve_seqshard", "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "batch": batch, "prompt": prompt,
+          "gen": gen, "cache_slots": prompt + gen,
+          "mesh": SEQSHARD_MESH.shape, "backend": place.backend,
+          "devices": place.devices, "run_s": run_s,
+          "world_start_s": meta0["world_start_s"],
+          "prefill_ms": [p.meta["prefill_s"] * 1e3 for p in out],
+          "decode_tok_s_sharded": steps * batch / shard_s,
+          "check_fp32_decode_tok_s": {
+              "unsharded": steps * batch / meta0["whole_decode_s"],
+              "sharded": steps * batch / max(p.meta["check_decode_s"]
+                                             for p in out)},
+          "collectives_per_token": {
+              k: n / steps for k, n in meta0["collectives"].items()},
+          "host_bytes_per_token": [p.meta["host_bytes"] / steps
+                                   for p in out],
+          "kv_shard_bytes": [p.meta["kv_bytes"] for p in out],
+          "dryrun_bytes": cache,
+          "rank_peak_gib": [p.meta["peak_bytes"] / 2**30 for p in out],
+          "launches": [p.meta["launches"] for p in out],
+          "logit_err_over_max": max(errs), "tolerance": SEQSHARD_TOL,
+          "greedy_rows_checked": agree,
+          "bf16_logit_err_over_max": max(bf16_errs),
+          "bf16_steps_checked": bf16_steps,
+          "bf16_tolerance": SEQSHARD_BF16_TOL,
+          "dropped_shard_err_over_max": dropped_errs,
+          "tokens_seq0": out[0].arrays["tokens"][0].tolist(),
+          # both ranks prefill the whole batch on the card at once
+          "roofline_prefill_both_ranks": _roofline(
+              cfg, "prefill", prompt, batch * len(out),
+              max(p.meta["prefill_s"] for p in out)),
+          "roofline_decode_token_sharded": _roofline(
+              cfg, "decode", prompt + gen, batch, shard_s / steps)})
+    torch.cuda.empty_cache()
+    return {f"rank{p.meta['rank']}": p.meta["launches"]["flash_attention"]
+            for p in out}
 
 
 def _m_rel(got: dict, want: dict) -> float:
@@ -3211,6 +3444,7 @@ def main() -> int:
     elastic_mp_launches = phase_train_elastic_multiproc()
     spmd_launches = {"train_spmd": phase_train_spmd(),
                      "train_spmd_shared": phase_train_spmd_shared()}
+    seqshard_launches = phase_serve_seqshard()
     phase_verify_protocol()
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
@@ -3236,6 +3470,7 @@ def main() -> int:
              for k, v in elastic_mp_launches.items()},
          "launches_train_spmd_step": {
              k: v["flash_attention"] for k, v in spmd_launches.items()},
+         "launches_serve_seqshard": seqshard_launches,
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"

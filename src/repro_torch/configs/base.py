@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 
 class ArchType(str, enum.Enum):
@@ -159,6 +161,72 @@ class ArchConfig:
             frontend_dim=d_model if self.frontend_dim else 0,
             dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str   # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: InputShape) -> Tuple[bool, str]:
+    """(runnable, reason-if-not) for an (arch, shape) pair per DESIGN.md §4."""
+    if shape.kind == "decode" and not cfg.has_decode:
+        return False, "encoder-only architecture has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_long_context():
+        return False, ("pure full-attention stack: 500k-token decode "
+                       "requires sub-quadratic attention (DESIGN.md §4)")
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape
+                ) -> Dict[str, torch.Tensor]:
+    """Model-input stand-ins: tensors on the ``meta`` device (a shape and
+    a dtype, no storage) where the JAX package has ``ShapeDtypeStruct``.
+
+    * train / prefill: token ids (+labels/weights for train).  VLM/audio
+      archs also get precomputed frontend embeddings (the modality
+      frontend is a stub).
+    * decode: one new token per sequence + position index (KV cache /
+      SSM state is threaded separately as carry state).
+
+    Token ids and positions are int32, as in the JAX package (the port's
+    own entry points take int64 ids; the stand-ins keep the reference's
+    types).
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if shape.kind == "train":
+        specs = {"tokens": spec((b, s), i32), "labels": spec((b, s), i32),
+                 "weights": spec((b, s), torch.float32)}
+        if cfg.frontend_dim:
+            specs["frontend_embed"] = spec((b, s, cfg.frontend_dim), act)
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": spec((b, s), i32)}
+        if cfg.frontend_dim:
+            specs["frontend_embed"] = spec((b, s, cfg.frontend_dim), act)
+        return specs
+    return {"tokens": spec((b, 1), i32), "positions": spec((b,), i32)}
 
 
 # ---------------------------------------------------------------------------

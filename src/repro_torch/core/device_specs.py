@@ -65,6 +65,15 @@ A10G = register(DeviceSpec("A10G", 31.2, 24.0, 600.0, "Ampere"))
 #: Tensor Core GPU datasheet: 66.9 TFLOP/s FP32 (non-tensor), 80 GB HBM3 at
 #: 3.35 TB/s.  FP32 peak, as for the paper's GPUs above.
 H100 = register(DeviceSpec("H100", 66.9, 80.0, 3350.0, "Hopper"))
+#: The same card's dense bf16 tensor-core peak, 989.4 TFLOP/s without
+#: sparsity (the vendor's H100 Tensor Core GPU datasheet, SXM5 column:
+#: "BF16 Tensor Core 1,979 teraFLOPS*", * with sparsity).  The roofline's
+#: compute term (``repro_torch.roofline``) divides by it.
+H100_BF16_TFLOPS = 989.4
+#: The same card's NVLink bandwidth in one direction, GB/s: the datasheet
+#: gives "NVLink: 900GB/s" (SXM5), both directions together, over its 18
+#: fourth-generation links.  The roofline's collective term divides by it.
+H100_NVLINK_GBPS = 450.0
 
 
 def get(name: str) -> DeviceSpec:

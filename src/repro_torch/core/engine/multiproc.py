@@ -54,7 +54,8 @@ boundaries:
   passive queries are answered from each worker's measured fwd/bwd step
   timings, active probe queries run a timed single-layer pass (the
   paper's Sec. 3.1 profile, live; CUDA events on the card) *inside* the
-  worker.  Straggler
+  worker; where the workers share one device, every query is a probe.
+  Straggler
   injection (:meth:`WallClockOracle.degrade`) makes the worker process
   actually slower — it sleeps proportionally to its compute — so the
   telemetry → refit → replan → migrate loop runs end-to-end on real
@@ -782,13 +783,17 @@ class _Worker:
         self._release()
 
     # --- wall-clock probes ----------------------------------------------
-    def probe(self, m: int, phase: str, repeats: int = 2) -> float:
+    def probe(self, m: int, phase: str, repeats: int = 2,
+              warmup_s: float = 0.0) -> float:
         """Timed single-layer pass at microbatch ``m`` — the Sec. 3.1
-        profile measurement, run live inside this rank's process."""
+        profile measurement, run live inside this rank's process — after
+        running it for at least ``warmup_s`` seconds (a device and a host
+        left idle by another process's turn come back to speed)."""
         if phase not in ("fwd", "bwd"):
             raise ValueError(f"unknown phase {phase!r}")
         fn = self._probe_fn(phase, m)
-        best = profiler._best_seconds(fn, self.device, max(repeats, 1))
+        best = profiler._best_seconds(fn, self.device, max(repeats, 1),
+                                      warmup_s)
         if self.slowdown > 1.0:
             time.sleep((self.slowdown - 1.0) * best * max(repeats, 1))
         return best * self.slowdown
@@ -914,7 +919,8 @@ def _worker_main(spec: WorkerSpec, conn, ring_prev=None,
                 channel.send("ok")
             elif tag == "probe":
                 channel.send("t", {"seconds": worker.probe(
-                    meta["m"], meta["phase"], meta.get("repeats", 2))})
+                    meta["m"], meta["phase"], meta.get("repeats", 2),
+                    meta.get("warmup_s", 0.0))})
             elif tag == "slowdown":
                 worker.slowdown = max(float(meta["factor"]), 1.0)
                 channel.send("ok")
@@ -1105,9 +1111,9 @@ class ProcessEngine(TrainEngine):
             topology=self.topology)
         #: rank -> (m, fwd_layer_s, bwd_layer_s): one timed single-layer
         #: pass per active rank at each step's end (sequential, so the
-        #: measurements don't contend) — the WallClockOracle's
-        #: passive-telemetry source, in the same units as the replan's
-        #: probe sweep and the planner's latency models.
+        #: measurements don't contend), in the same units as the replan's
+        #: probe sweep and the planner's latency models.  Telemetry for
+        #: readers of the engine; the WallClockOracle does not serve it.
         self.last_step_samples: Dict[int, Tuple[int, float, float]] = {}
         #: rank -> whole-step fwd+bwd compute wall seconds measured
         #: around the worker boundary (full model, all rounds).
@@ -1391,13 +1397,15 @@ class ProcessEngine(TrainEngine):
 
     # --- wall-clock surface --------------------------------------------
     def probe(self, rank: int, m: int, phase: str,
-              repeats: int = 2) -> float:
-        """Live single-layer latency measurement on one rank process."""
+              repeats: int = 2, warmup_s: float = 0.0) -> float:
+        """Live single-layer latency measurement on one rank process,
+        after ``warmup_s`` seconds of the same pass."""
         if not 0 <= rank < self.n:
             raise ValueError(f"rank {rank} out of range for n={self.n}")
         meta, _ = self.substrate.request(
             rank, "probe", {"m": int(m), "phase": phase,
-                            "repeats": int(repeats)})
+                            "repeats": int(repeats),
+                            "warmup_s": float(warmup_s)})
         return float(meta["seconds"])
 
     def inject_slowdown(self, rank: int, factor: float) -> None:
@@ -1480,6 +1488,18 @@ class ProcessEngine(TrainEngine):
 # Wall-clock telemetry
 # ---------------------------------------------------------------------------
 
+#: A :class:`WallClockOracle` probe is the best of at least
+#: SHARED_PROBE_REPEATS timed passes after SHARED_PROBE_WARMUP_S seconds of
+#: the same pass, and the oracle takes SHARED_PROBE_TURNS turns over the
+#: ranks at one ``(m, phase)``: on the device the fleet's workers share,
+#: one probe call reads anywhere from its rank's best to twice it, for
+#: tens of milliseconds at a time (with four turns, two ranks' bests at
+#: m 1 still differed by up to 35% on one H100).
+SHARED_PROBE_REPEATS = 5
+SHARED_PROBE_WARMUP_S = 0.02
+SHARED_PROBE_TURNS = 8
+
+
 class WallClockOracle:
     """Real-measurement latency source for the elastic control loop.
 
@@ -1488,11 +1508,9 @@ class WallClockOracle:
     ``degrade``/``restore`` straggler hooks — but every number is a
     wall-clock measurement from a rank *process*:
 
-    * passive queries (the per-step telemetry ingest at the plan's
-      ``m_i``) are served from the engine's last-step measured fwd/bwd
-      per-layer timings — free, the step ran anyway;
-    * probe queries (the replan's Sec. 3.1 ``m``-grid sweep) run a timed
-      single-layer pass inside the worker;
+    * every query, the per-step telemetry ingest at the plan's ``m_i``
+      and the replan's Sec. 3.1 ``m``-grid sweep alike, is answered by
+      timed single-layer passes inside the workers (:meth:`_turn`);
     * ``degrade(rank, f)`` makes the worker sleep ``(f-1)×`` its compute
       time — an actually-slow process, re-applied across replans (the
       slow *machine* stays slow even after the fleet is respawned).
@@ -1501,12 +1519,33 @@ class WallClockOracle:
     oracle to its inner engine (:meth:`bind`), and again after every
     replan's respawn; outside the elastic loop :meth:`bind` binds by
     hand.
+
+    Port difference (the reference's ``WallClockOracle.__call__``, which
+    serves the passive sample where ``m`` matches and probes otherwise):
+    every worker of a fleet runs on the engine's one device (the card, or
+    the CPU), so every query is answered by an isolated probe taken in
+    turns with the other ranks' at the same ``m`` (:meth:`_turn`), and the
+    engine's passive samples (``last_step_samples``) stay telemetry for
+    readers of the engine only.  Served to the control loop, a passive
+    sample (one timed pass taken right after the step, on a device the
+    other workers have just used) beside another rank's
+    best-of-2 probe made the refit compare two kinds of
+    measurement: on one H100 a rank three times slower was refit at
+    1.6-1.9x the other.  Probes alone, rank by rank as the control loop
+    asks, read the rank probed after the straggler's whole sweep up to
+    1.6x slower than the straggler for the same work, warm-up or not, so
+    the refit saw 1.9-2.2x: a layer at small ``m`` is bound by its
+    launches, and on the host and card the workers share one probe call
+    reads anywhere from its rank's best to twice it, for tens of
+    milliseconds at a time, so each rank's best is taken over several
+    calls interleaved with the other ranks'.
     """
 
-    def __init__(self, probe_repeats: int = 2):
+    def __init__(self):
         self.engine: Optional[ProcessEngine] = None
+        #: (m, phase) -> (engine step, {rank: seconds}) not yet answered
+        self._turns: Dict[Tuple[int, str], Tuple[Any, Dict[int, float]]] = {}
         self.factors: Dict[int, float] = {}
-        self.probe_repeats = probe_repeats
 
     def bind(self, engine: ProcessEngine) -> None:
         if not hasattr(engine, "probe") or \
@@ -1516,9 +1555,35 @@ class WallClockOracle:
                 f"(engine {type(engine).__name__} has no live probe "
                 "surface); use CostModelOracle for simulated substrates")
         self.engine = engine
+        self._turns = {}
         for rank, factor in self.factors.items():
             if rank < engine.n:
                 engine.inject_slowdown(rank, factor)
+
+    def _turn(self, rank: int, m: int, phase: str) -> float:
+        """Every rank probed at ``(m, phase)`` in
+        :data:`SHARED_PROBE_TURNS` turns, in rank order and then back
+        (0, 1, ..., 1, 0, 0, 1, ...), each probe the best of at least
+        :data:`SHARED_PROBE_REPEATS` passes after
+        :data:`SHARED_PROBE_WARMUP_S` seconds of the same pass, and each
+        rank's best kept; the other ranks' values answer their own
+        queries for ``(m, phase)`` in the same engine step."""
+        step = getattr(self.engine, "_gstep", None)
+        held = self._turns.get((m, phase))
+        if held is None or held[0] != step or rank not in held[1]:
+            ranks = list(range(self.engine.n))
+            order = [r for k in range(SHARED_PROBE_TURNS)
+                     for r in (ranks if k % 2 == 0 else ranks[::-1])]
+            best: Dict[int, float] = {}
+            for r in order:
+                t = self.engine.probe(
+                    r, m, phase,
+                    repeats=SHARED_PROBE_REPEATS,
+                    warmup_s=SHARED_PROBE_WARMUP_S)
+                best[r] = min(best.get(r, t), t)
+            held = (step, best)
+            self._turns[(m, phase)] = held
+        return held[1].pop(rank)
 
     def degrade(self, rank: int, factor: float) -> None:
         self.factors[rank] = float(factor)
@@ -1540,8 +1605,4 @@ class WallClockOracle:
                 "build_train_step(..., substrate='multiproc', "
                 "elastic=True, oracle=...), which binds it, or call "
                 "oracle.bind(engine) on a multiproc engine")
-        cached = self.engine.last_step_samples.get(rank)
-        if cached is not None and cached[0] == m:
-            return cached[1] if phase == "fwd" else cached[2]
-        return self.engine.probe(rank, m, phase,
-                                 repeats=self.probe_repeats)
+        return self._turn(rank, m, phase)

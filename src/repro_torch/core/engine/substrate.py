@@ -52,7 +52,9 @@ class ShardMapSubstrate(CollectiveSubstrate):
     over the whole world by default); ``replica_group`` — HSDP: the group
     the state is replicated over, whose gradient all-reduce rides on the
     gather's backward.  ``comm`` is the rank's
-    :class:`~repro_torch.core.engine.world.Comm`.
+    :class:`~repro_torch.core.engine.world.Comm`; the substrate runs its
+    collectives through a scope of it, whose ``calls`` and ``bytes``
+    (each output buffer's, as it runs) hold the unit collectives alone.
     """
 
     name = "shard_map"
@@ -64,9 +66,13 @@ class ShardMapSubstrate(CollectiveSubstrate):
         self.stats["all_reduce"] = 0
         self.state_group = state_group
         self.replica_group = replica_group
-        self.comm = comm
+        self.comm = comm.scope()
         self.gather_dtype = gather_dtype
         self.grad_dtype = grad_dtype
+
+    def reset_stats(self) -> None:
+        super().reset_stats()
+        self.comm.reset()
 
     def unit_gather_fn(self, group: UnitGroup) -> Callable[[torch.Tensor],
                                                            Any]:

@@ -90,6 +90,33 @@ class Mesh:
         return int(np.prod([self.shape[self.axis_names.index(a)]
                             for a in axes]))
 
+    def shard_shape(self, shape: Sequence[int],
+                    spec: "ShardSpec") -> Tuple[int, ...]:
+        """One rank's shape of an array of global ``shape`` placed by
+        ``spec`` (per dim the axes it is split over, or None; dims past
+        its end whole), as ``NamedSharding.shard_shape``."""
+        out = list(shape)
+        for i, axes in enumerate(spec):
+            if axes is None:
+                continue
+            n = self.axis_size((axes,) if isinstance(axes, str) else axes)
+            if out[i] % n:
+                raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                                 f"over {axes} ({n})")
+            out[i] //= n
+        return tuple(out)
+
+    def coord(self, rank: int, axes: Sequence[str]) -> int:
+        """Rank ``rank``'s index along ``axes`` (row-major over them, in
+        the order given): the block of a dim split over ``axes`` that it
+        holds."""
+        pos = np.unravel_index(rank, self.shape)
+        idx = 0
+        for a in axes:
+            i = self.axis_names.index(a)
+            idx = idx * self.shape[i] + int(pos[i])
+        return idx
+
     def groups(self, axes: Sequence[str]) -> List[List[int]]:
         """The partition of the ranks into groups over ``axes``: each
         group holds the ranks that agree on every other axis, ordered
@@ -110,6 +137,11 @@ class Mesh:
                 ranks.append(int(np.ravel_multi_index(coord, self.shape)))
             out.append(ranks)
         return out
+
+
+#: a leaf's placement on a mesh: per dim, the axis (or axes) it is split
+#: over, or None where it is whole; the reference's ``PartitionSpec``
+ShardSpec = Tuple[Any, ...]
 
 
 def device_count(device: torch.device | str) -> int:
@@ -153,6 +185,8 @@ def placement(device: torch.device | str, n: int) -> Placement:
 # ---------------------------------------------------------------------------
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+#: the collectives a Comm runs (the keys of its counters)
+_OPS_RUN = ("all_gather", "reduce_scatter", "all_reduce")
 # torch renamed the tensor collectives; either name does the same
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
@@ -164,27 +198,62 @@ class Comm:
     """One rank's collectives.  With ``staged`` (ranks sharing a card)
     every collective copies its device buffers to pinned host memory,
     runs on gloo there and copies the result back; ``host_bytes`` counts
-    the bytes of those copies, both ways."""
+    the bytes of those copies, both ways, ``calls`` the collectives run
+    and ``bytes`` the bytes of their output buffers, by op.  A
+    :meth:`scope` counts what runs through it in its own counters and in
+    its parent's."""
 
-    def __init__(self, staged: bool = False):
+    def __init__(self, staged: bool = False,
+                 parent: Optional["Comm"] = None):
         self.staged = staged
+        self.parent = parent
         self.host_bytes = 0
+        self.calls = dict.fromkeys(_OPS_RUN, 0)
+        self.bytes = dict.fromkeys(_OPS_RUN, 0)
+
+    def scope(self) -> "Comm":
+        """A Comm on the same backends whose counters hold only the
+        collectives run through it (each is counted here too)."""
+        return Comm(self.staged, parent=self)
+
+    def reset(self) -> None:
+        """Zero this Comm's counters (not its parent's)."""
+        self.host_bytes = 0
+        for k in _OPS_RUN:
+            self.calls[k] = self.bytes[k] = 0
+
+    def _chain(self):
+        c = self
+        while c is not None:
+            yield c
+            c = c.parent
+
+    def _count(self, op: str, out: torch.Tensor) -> None:
+        n = out.numel() * out.element_size()
+        for c in self._chain():
+            c.calls[op] += 1
+            c.bytes[op] += n
+
+    def _add_host(self, n: int) -> None:
+        for c in self._chain():
+            c.host_bytes += n
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t)
-        self.host_bytes += t.numel() * t.element_size()
+        self._add_host(t.numel() * t.element_size())
         return h
 
     def _back(self, out: torch.Tensor, h: torch.Tensor) -> None:
         out.copy_(h)
-        self.host_bytes += h.numel() * h.element_size()
+        self._add_host(h.numel() * h.element_size())
 
     def all_gather(self, out: torch.Tensor, inp: torch.Tensor,
                    group) -> None:
         """``out`` (N, ...) ← every rank's ``inp`` (...) in group order
         (both contiguous; the backends take them flat)."""
         out, inp = out.view(-1), inp.view(-1)
+        self._count("all_gather", out)
         if not self.staged:
             _ALL_GATHER(out, inp, group=group)
             return
@@ -198,6 +267,7 @@ class Comm:
         rank's ``inp`` (N, P), ``i`` this rank's index in the group (both
         contiguous; the backends take them flat)."""
         out, inp = out.view(-1), inp.view(-1)
+        self._count("reduce_scatter", out)
         if not self.staged:
             _REDUCE_SCATTER(out, inp, group=group)
             return
@@ -207,6 +277,7 @@ class Comm:
 
     def all_reduce(self, t: torch.Tensor, group, op: str = "sum") -> None:
         """``t`` ← its sum (or max) over the group, in place."""
+        self._count("all_reduce", t)
         if not self.staged:
             dist.all_reduce(t, op=_OPS[op], group=group)
             return

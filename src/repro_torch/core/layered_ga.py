@@ -40,9 +40,13 @@ unused (the misc unit in the embedding without learned positions, the
 embedding in the head of an untied model), XLA drops the dead gather;
 eager code does not, so this program gathers only what it uses.  Every
 stage unit's state is ``(count, P_max)``, a count of 1 included.
-``state_shardings``, ``batch_shardings`` and ``jit_step`` (the
-reference's DeviceMesh/dry-run surface) belong to ROADMAP queue 1 item
-11 and are not here.
+
+A program built on a :class:`~repro_torch.core.engine.world.Mesh` alone
+(no rank context) holds the layouts, the global shapes and the
+placements (:meth:`CephaloProgram.state_shardings`,
+:meth:`~CephaloProgram.batch_shardings`: for each dim of a leaf, the
+mesh axes it is split over), which is what the memory dry-run
+(``repro_torch.launch.dryrun``) reads; it cannot step.
 
 The module also holds the rank-side functions of
 :class:`~repro_torch.core.engine.api.SpmdEngine` (``rank_*``), which the
@@ -66,7 +70,8 @@ from repro_torch.core.engine.schedules import Schedule, get_schedule
 from repro_torch.core.engine.substrate import ShardMapSubstrate
 from repro_torch.core.engine.units import (UnitGroup, UnitPlanner,
                                            merge_params, split_params)
-from repro_torch.core.engine.world import Payload, RankContext
+from repro_torch.core.engine.world import (Mesh, Payload, RankContext,
+                                           ShardSpec)
 from repro_torch.models import model as M
 from repro_torch.optim.adam import AdamConfig, adam_update
 
@@ -85,9 +90,11 @@ class CephaloProgram:
     """One rank's SPMD train step for one arch, in the world of ``ctx``.
 
     Every rank of the world constructs it with the same arguments at the
-    same time (it creates the mesh's process groups)."""
+    same time (it creates the mesh's process groups).  Given a
+    :class:`Mesh` in place of a rank context, it holds the layouts,
+    shapes and placements only."""
 
-    def __init__(self, cfg: ArchConfig, ctx: RankContext,
+    def __init__(self, cfg: ArchConfig, ctx: Union[RankContext, Mesh],
                  ratios: Optional[Sequence[float]] = None,
                  ell: int = 1, m: int = 1, seq: int = 512,
                  ga_mode: Union[str, Schedule] = "layered",
@@ -101,9 +108,11 @@ class CephaloProgram:
                  state_axes: Optional[Sequence[str]] = None,
                  schedule: Union[str, Schedule, None] = None):
         self.cfg = cfg
+        if isinstance(ctx, Mesh):
+            ctx, self.mesh, self.device = None, ctx, torch.device("meta")
+        else:
+            self.mesh, self.device = ctx.mesh, ctx.device
         self.ctx = ctx
-        self.mesh = ctx.mesh
-        self.device = ctx.device
         self.axes = self.mesh.axis_names
         # HSDP (beyond-paper): shard state over a SUBSET of mesh axes and
         # replicate across the rest.  Default: ZeRO-3 over all axes.
@@ -135,6 +144,8 @@ class CephaloProgram:
         self.planner = UnitPlanner(cfg, self.ratios)
         self.stages = self.planner.stages
         self.groups = self.planner.groups
+        if ctx is None:
+            return
         state_group, self.state_index = ctx.axis_group(self.state_axes)
         replica_group = ctx.axis_group(self.replica_axes)[0] \
             if self.replica_axes else None
@@ -170,6 +181,19 @@ class CephaloProgram:
                 out[f"{g.name}/{part}"] = (shape, torch.float32)
         return out
 
+    def state_shardings(self) -> Dict[str, ShardSpec]:
+        """Each state leaf's placement: for each dim, the mesh axes it is
+        split over (None: whole).  A unit's flat is split over the state
+        axes (replicated over the others, HSDP); a stage's count dim is
+        whole; the step is replicated."""
+        out: Dict[str, ShardSpec] = {"step": ()}
+        for g in self.groups:
+            spec = (None, self.state_axes) if g.stage_idx >= 0 \
+                else (self.state_axes,)
+            for part in ("p", "m", "v"):
+                out[f"{g.name}/{part}"] = spec
+        return out
+
     def batch_shapes(self) -> Dict[str, Tuple[Tuple[int, ...],
                                               torch.dtype]]:
         """Global shapes and dtypes of a step's batch ``(n, ell, m, seq)``;
@@ -181,6 +205,27 @@ class CephaloProgram:
             out["frontend_embed"] = (b + (self.cfg.frontend_dim,),
                                      torch.float32)
         return out
+
+    def batch_shardings(self) -> Dict[str, ShardSpec]:
+        """Each batch leaf's placement: the rank dim over every axis."""
+        return {k: (self.axes,) + (None,) * (len(shape) - 1)
+                for k, (shape, _) in self.batch_shapes().items()}
+
+    def local_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The shape of each state and batch leaf on one rank, from its
+        global shape and its placement."""
+        out = {}
+        for shapes, places in ((self.state_shapes(), self.state_shardings()),
+                               (self.batch_shapes(), self.batch_shardings())):
+            for k, (shape, _) in shapes.items():
+                out[k] = self.mesh.shard_shape(shape, places[k])
+        return out
+
+    def jit_step(self) -> None:
+        """The reference's ``jax.jit`` of the step with its shardings.
+        The runtime is eager: each rank calls :meth:`step` on its own
+        shards, so there is nothing to trace or compile and this has no
+        analogue."""
 
     def _shard_group_tree(self, g: UnitGroup, tree: Any) -> torch.Tensor:
         """One unit's full tree → this rank's padded shard, ``(P_max,)``
@@ -443,8 +488,9 @@ def rank_init(ctx: RankContext, gen_state: bytes) -> None:
 
 def rank_step(ctx: RankContext, batch: Payload) -> dict:
     """One step on this rank's slice of the grid; its loss, seconds,
-    device and backend, collectives, host bytes, kernel launches and
-    peak device memory."""
+    device and backend, collectives (counts and output bytes), host
+    bytes, the bytes of its p, m and v shards, kernel launches and peak
+    device memory."""
     from repro_torch.core.engine.multiproc import kernel_launches
     prog: CephaloProgram = ctx.objects["program"]
     before = kernel_launches()
@@ -462,7 +508,11 @@ def rank_step(ctx: RankContext, batch: Payload) -> dict:
            "backend": torch.distributed.get_backend(),
            "staged": ctx.comm.staged,
            "collectives": dict(prog.substrate.stats),
+           "collective_bytes": dict(prog.substrate.comm.bytes),
            "host_bytes": ctx.comm.host_bytes - host0,
+           "state_bytes": {part: sum(
+               ctx.objects["state"][f"{g.name}/{part}"].nbytes
+               for g in prog.groups) for part in ("p", "m", "v")},
            "launches": {k: after[k] - before.get(k, 0) for k in after
                         if after[k] != before.get(k, 0)},
            "peak_bytes": torch.cuda.max_memory_allocated(ctx.device)

@@ -86,10 +86,17 @@ def layer_call(cfg: ArchConfig, spec, bp, shared, x: torch.Tensor,
 
 
 def _best_seconds(fn: Callable[[], object], device: torch.device,
-                  repeats: int) -> float:
+                  repeats: int, warmup_s: float = 0.0) -> float:
     """Minimum over ``repeats`` timed calls of ``fn``, after one warm-up
-    call: CUDA events on the card, the host clock on the CPU."""
+    call and further ones for at least ``warmup_s`` seconds (a device
+    and a host left idle come back to speed): CUDA events on the card,
+    the host clock on the CPU."""
     fn()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warmup_s:
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     best = float("inf")
     for _ in range(repeats):
         if device.type == "cuda":
@@ -110,7 +117,8 @@ def _best_seconds(fn: Callable[[], object], device: torch.device,
 def profile_layer_forward(cfg: ArchConfig, seq: int,
                           ms: Sequence[int] = PROFILE_MS,
                           repeats: int = 3,
-                          device: torch.device | str = "cuda"
+                          device: torch.device | str = "cuda",
+                          warmup_s: float = 0.0
                           ) -> List[Tuple[int, float]]:
     """Measured (m, seconds) samples for one block's forward pass."""
     device = M.resolve_device(device)
@@ -119,14 +127,15 @@ def profile_layer_forward(cfg: ArchConfig, seq: int,
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
         fn = layer_call(cfg, spec, bp, shared, x, pos)
-        out.append((m, _best_seconds(fn, device, repeats)))
+        out.append((m, _best_seconds(fn, device, repeats, warmup_s)))
     return out
 
 
 def profile_layer_backward(cfg: ArchConfig, seq: int,
                            ms: Sequence[int] = PROFILE_MS,
                            repeats: int = 3,
-                           device: torch.device | str = "cuda"
+                           device: torch.device | str = "cuda",
+                           warmup_s: float = 0.0
                            ) -> List[Tuple[int, float]]:
     """Measured (m, seconds) samples for one block's forward and backward:
     the grads of ``sum(y*y)`` with respect to the block's params (a
@@ -141,7 +150,7 @@ def profile_layer_backward(cfg: ArchConfig, seq: int,
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
         fn = layer_call(cfg, spec, bp, shared, x, pos, leaves)
-        out.append((m, _best_seconds(fn, device, repeats)))
+        out.append((m, _best_seconds(fn, device, repeats, warmup_s)))
     return out
 
 
@@ -179,18 +188,21 @@ def refit_cluster_model(cm: ClusterCostModel,
 def wallclock_cluster_model(cluster, cfg: ArchConfig, seq: int,
                             ms: Sequence[int] = PROFILE_MS,
                             repeats: int = 2,
-                            device: torch.device | str = "cuda"
+                            device: torch.device | str = "cuda",
+                            warmup_s: float = 0.0
                             ) -> ClusterCostModel:
     """Cost model in *this device's* wall-clock units, no spec rescaling:
     every rank gets the same measured fwd/bwd
     :class:`~repro_torch.core.cost_model.LatencyModel`, memory stays
     analytic and comm comes from the cluster spec.  The bootstrap of a
     rank fleet whose ranks share one kind of silicon (the multiproc
-    substrate, :mod:`repro_torch.core.engine.multiproc`)."""
+    substrate, :mod:`repro_torch.core.engine.multiproc`).  Each sample
+    is the best of ``repeats`` calls after ``warmup_s`` seconds of the
+    same call (:func:`_best_seconds`)."""
     fwd = profile_layer_forward(cfg, seq, ms=ms, repeats=repeats,
-                                device=device)
+                                device=device, warmup_s=warmup_s)
     bwd = profile_layer_backward(cfg, seq, ms=ms, repeats=repeats,
-                                 device=device)
+                                 device=device, warmup_s=warmup_s)
     t_fwd = LatencyModel([m for m, _ in fwd], [t for _, t in fwd])
     t_bwd = LatencyModel([m for m, _ in bwd], [t for _, t in bwd])
     mem = analytic_memory(cfg, seq)

@@ -19,8 +19,10 @@ substrate="shard_map")``; ``--checkpoint`` saves the exported state.
 ``$CEPHALO_MP_TOPOLOGY`` or hub; ``--overlap`` pipelines the ring's
 rounds and needs ``--topology ring``).  As in the reference, its planner
 starts from wall-clock latency models measured on the device
-(``profiler.wallclock_cluster_model``), and the memory report names each
-rank's worker pid.
+(``profiler.wallclock_cluster_model``, each sample taken as the
+``WallClockOracle`` takes its probes), and the memory report names each
+rank's worker pid.  ``--cluster h100`` is the port's own card, eight
+H100s on NVLink.
 
 ``--elastic`` wraps the engine in the elastic replanning runtime
 (:mod:`repro_torch.core.engine.elastic`): step-time telemetry refits
@@ -115,6 +117,12 @@ CLUSTERS = {
     "cluster-b": D.cluster_b,
     "mini": lambda: D.Cluster([D.L4, D.A6000, D.P40, D.P100],
                               link_gbps=50, name="mini"),
+    # the port's card: one node of eight H100 SXM5 joined by NVLink
+    # (GB/s to Gb/s), so a fleet on the card plans against the link of
+    # its own kind of machine
+    "h100": lambda: D.Cluster([D.H100] * 8,
+                              link_gbps=8 * D.H100_NVLINK_GBPS,
+                              name="h100", gpus_per_node=8),
 }
 
 
@@ -178,10 +186,17 @@ def solve_plan(args, cfg: Optional[ArchConfig] = None
             cluster, devices=devices,
             name=f"{cluster.name}x{args.nprocs}")
     if args.substrate == "multiproc":
+        from repro_torch.core.engine import multiproc as MP
         from repro_torch.core.profiler import wallclock_cluster_model
         print(f"profiling wall-clock latency models on {args.device} ...")
-        cm = wallclock_cluster_model(cluster, cfg, args.seq,
-                                     device=args.device)
+        # measured as the WallClockOracle's probes measure (port
+        # difference: the reference takes the best of 2 calls), so the
+        # elastic loop, which holds its probes against this model's
+        # prediction, starts calibrated
+        cm = wallclock_cluster_model(
+            cluster, cfg, args.seq, device=args.device,
+            repeats=MP.SHARED_PROBE_REPEATS * MP.SHARED_PROBE_TURNS,
+            warmup_s=MP.SHARED_PROBE_WARMUP_S)
     else:
         cm = analytic_cluster_model(cluster,
                                     build_model_stats(cfg, args.seq))

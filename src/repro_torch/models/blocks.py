@@ -15,7 +15,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnKind
-from repro_torch.models.layers.attention import (AttnSpec, attention_apply,
+from repro_torch.models.layers.attention import (AttnSpec, SeqShardAxis,
+                                                 attention_apply,
                                                  attention_init,
                                                  decode_attend,
                                                  merge_decode_partials)
@@ -103,11 +104,14 @@ def dense_block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                       positions: torch.Tensor, *, local: bool = False,
                       kv_cache: Optional[Tuple] = None,
                       return_kv: bool = False,
+                      seq_shard_axis: Optional[SeqShardAxis] = None,
                       dropless: bool = False):
     """Returns (y, aux_loss, new_kv_or_None).
 
     ``kv_cache = (k, v, kv_positions)`` → decode mode (x is one token at
-    ``positions`` (B,)).  Otherwise ``positions`` is (B, S).
+    ``positions`` (B,)).  Otherwise ``positions`` is (B, S).  With
+    ``seq_shard_axis`` the cache is this rank's sequence shard and the
+    attention partials merge across the axis's ranks.
     ``dropless`` — MoE dispatch with no capacity dropping (the serving
     paths pass True so decode matches a drop-free full forward).
     """
@@ -123,7 +127,7 @@ def dense_block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
             q = apply_rope(q, positions[:, None], spec.rope_theta)
         k_cache, v_cache, kv_pos = kv_cache
         wv, m, l = decode_attend(q, k_cache, v_cache, kv_pos, positions, spec)
-        out = merge_decode_partials(wv, m, l)
+        out = merge_decode_partials(wv, m, l, seq_shard_axis)
         attn_out = torch.einsum("bshk,hkd->bsd", out.to(dtype),
                                 params["attn"]["wo"].to(dtype))
     else:

@@ -34,22 +34,35 @@ def init_kv(n_layers: int, batch: int, cache_len: int, n_kv: int,
 
 def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
              pos_arr: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
-             positions: torch.Tensor, cache_total: int,
+             positions: torch.Tensor, cache_total: int, shard_start: int = 0,
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Write one token's (k, v) into a layer cache, in place.
+    """Write one token's (k, v) into (a shard of) a layer cache, in place.
 
-    k_cache/v_cache: (B, cache_total, KV, hd); pos_arr: (B, cache_total);
+    k_cache/v_cache: (B, S_loc, KV, hd); pos_arr: (B, S_loc);
     k_new/v_new: (B, 1, KV, hd); positions: (B,) absolute positions.
-    ``cache_total`` is the cache length (= window for ring buffers).
-    Returns the updated tensors, which are the ones passed in.  (The JAX
-    package's ``shard_start`` belongs to sequence-sharded decode, ROADMAP
-    queue 1 item 11.)
+    ``cache_total`` is the *global* cache length (= window for ring
+    buffers); ``shard_start`` → this rank owns global slots
+    [shard_start, shard_start + S_loc) and writes only a token whose slot
+    it owns (a row it does not own is written back as it was).  Returns
+    the updated tensors, which are the ones passed in.
     """
-    idx = positions % cache_total
-    b_idx = torch.arange(pos_arr.shape[0], device=pos_arr.device)
-    k_cache.index_put_((b_idx, idx), k_new[:, 0])
-    v_cache.index_put_((b_idx, idx), v_new[:, 0])
-    pos_arr.index_put_((b_idx, idx), positions.to(pos_arr.dtype))
+    b, s_loc = pos_arr.shape
+    b_idx = torch.arange(b, device=pos_arr.device)
+    slot = positions % cache_total - shard_start
+    pos_new = positions.to(pos_arr.dtype)
+    if shard_start == 0 and s_loc == cache_total:
+        idx, k_w, v_w = slot, k_new[:, 0], v_new[:, 0]
+    else:
+        own = (slot >= 0) & (slot < s_loc)
+        idx = slot.clamp(0, s_loc - 1)
+        k_w = torch.where(own[:, None, None], k_new[:, 0],
+                          k_cache[b_idx, idx])
+        v_w = torch.where(own[:, None, None], v_new[:, 0],
+                          v_cache[b_idx, idx])
+        pos_new = torch.where(own, pos_new, pos_arr[b_idx, idx])
+    k_cache.index_put_((b_idx, idx), k_w)
+    v_cache.index_put_((b_idx, idx), v_w)
+    pos_arr.index_put_((b_idx, idx), pos_new)
     return k_cache, v_cache, pos_arr
 
 

@@ -13,6 +13,10 @@ Three compute paths, numerically interchangeable:
                    ``blockwise``.
 
 Decode (:func:`decode_attend`) is plain PyTorch, as in the JAX package.
+With the KV cache split over ranks along the sequence (sequence-sharded
+decode, DESIGN.md §5), each rank attends over its slots and
+:func:`merge_decode_partials` merges the partials across a
+:class:`SeqShardAxis` with the log-sum-exp trick.
 
 Layout convention: activations ``(B, S, D)``, heads ``(B, S, H, hd)``,
 KV cache ``(B, S_max, KV, hd)``.
@@ -21,7 +25,7 @@ KV cache ``(B, S_max, KV, hd)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -206,10 +210,38 @@ def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
             l.reshape(b, h, sq))
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqShardAxis:
+    """The ranks a KV cache's sequence is split over (the reference's
+    ``seq_shard_axis``, a mesh axis name inside ``shard_map``): their
+    process ``group``, this rank's ``comm`` (``all_reduce(t, group,
+    op)``: NCCL with a card per rank, gloo where ranks share a card or on
+    the CPU) and this rank's ``index`` in the group: the block of the
+    sequence it holds."""
+
+    group: Any
+    comm: Any
+    index: int
+
+
 def merge_decode_partials(wv: torch.Tensor, m: torch.Tensor,
-                          l: torch.Tensor) -> torch.Tensor:
-    """Normalise one shard's decode partials (the single-shard merge)."""
-    del m   # one shard: its max is the global max
+                          l: torch.Tensor,
+                          axis: Optional[SeqShardAxis] = None
+                          ) -> torch.Tensor:
+    """Merge per-shard decode partials; with ``axis`` the merge runs
+    across its ranks (sequence-sharded KV): the max over the group, then
+    the sums of ``exp(m - m*) wv`` and ``exp(m - m*) l``.  A rank whose
+    slots are all masked holds ``m = -1e30``: its scale is 0, so it adds
+    nothing (no NaN) as long as one rank of the group holds a valid slot.
+    Without ``axis`` it normalises one shard's partials."""
+    if axis is not None:
+        m_glob = m.clone()
+        axis.comm.all_reduce(m_glob, axis.group, op="max")
+        scale = torch.exp(m - m_glob)
+        wv = (wv * scale[..., None]).contiguous()
+        l = (l * scale).contiguous()
+        axis.comm.all_reduce(wv, axis.group, op="sum")
+        axis.comm.all_reduce(l, axis.group, op="sum")
     out = wv / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2)   # (B, 1, H, hd)
 

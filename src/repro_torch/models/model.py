@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, AttnKind
 from repro_torch.models import blocks as B
 from repro_torch.models import kvcache as KV
+from repro_torch.models.layers.attention import SeqShardAxis
 from repro_torch.models.layers.init_utils import dense_init, embed_init
 
 #: Leaves the JAX package keeps in fp32 and uses in fp32 (norm scales, the
@@ -432,26 +433,30 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def _sub_blocks(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict]
                 ) -> Iterator[Tuple[str, Any, Dict, Any]]:
     """Every block of the model in the order the forward applies them,
-    beside its cache: ``("attn", params, its KV cache, local)`` for an
-    attention block and ``("ssm", params, the SSM caches it indexes, j)``
-    for an SSM block.  A pair is its local then its global layer; a zamba
-    group its ``inner`` SSM blocks, then the shared block with the group's
-    own KV cache."""
+    beside its cache: ``("attn", params, its KV cache, (local, group))``
+    for an attention block — ``group`` names its cache group as
+    :func:`decode_step`'s ``cache_total`` does: ``"k"`` (a dense stage),
+    ``"local"``/``"global"`` (a pair), ``"attn"`` (a zamba group) — and
+    ``("ssm", params, the SSM caches it indexes, j)`` for an SSM block.  A
+    pair is its local then its global layer; a zamba group its ``inner``
+    SSM blocks, then the shared block with the group's own KV cache."""
     for spec, sp, cache in zip(build_stages(cfg), params["stages"], caches):
         for i in range(spec.count):
             bp = layer(sp, i)
             if spec.kind == "dense":
-                yield "attn", bp, layer(cache, i), spec.local
+                yield "attn", bp, layer(cache, i), (spec.local, "k")
             elif spec.kind == "pair":
-                yield "attn", bp["local"], layer(cache["local"], i), True
-                yield "attn", bp["global"], layer(cache["global"], i), False
+                yield ("attn", bp["local"], layer(cache["local"], i),
+                       (True, "local"))
+                yield ("attn", bp["global"], layer(cache["global"], i),
+                       (False, "global"))
             elif spec.kind == "ssm":
                 yield "ssm", bp, cache, i
             elif spec.kind == "zamba":
                 c = layer(cache, i)
                 for j in range(spec.inner):
                     yield "ssm", layer(bp["mamba"], j), c, j
-                yield "attn", params["shared"], c["attn"], False
+                yield "attn", params["shared"], c["attn"], (False, "attn")
             else:
                 raise ValueError(spec.kind)
 
@@ -472,7 +477,8 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     x = embed_tokens(cfg, params, tokens, positions, frontend_embed)
     caches = init_cache(cfg, bsz, max_len, tokens.device)
 
-    def attend(bp, x, c, local):
+    def attend(bp, x, c, arg):
+        local = arg[0]
         x, _, kv = B.dense_block_apply(bp, x, cfg, positions, local=local,
                                        return_kv=True, dropless=True)
         KV.fill_kv_from_prefill(c, kv[0], kv[1], positions,
@@ -493,22 +499,42 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
 def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
                 tokens: torch.Tensor, positions: torch.Tensor,
+                seq_shard_axis: Optional[SeqShardAxis] = None,
+                cache_total: Optional[Dict[str, int]] = None,
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One serving step: ``tokens`` (B, 1) at absolute ``positions`` (B,).
 
     Writes this token's (k, v), or the new SSM and conv state, into
     ``caches`` in place and returns (logits (B, 1, V) fp32, caches).
+
+    With ``seq_shard_axis`` the KV caches are this rank's sequence shards
+    and attention partials merge across the axis's ranks with the LSE
+    trick.  ``cache_total`` maps a cache group (``"k"``, ``"local"``,
+    ``"global"``, ``"attn"``) to its global length (default: the local
+    one).  A split group's shard starts at the rank's index times its
+    local length, one start per group (the reference passes one
+    ``shard_start`` to every group, which a pair's ring of ``window``
+    slots beside its global cache cannot share); a group whose local
+    length is its global one is whole on every rank and starts at 0.  SSM
+    state is replicated: every rank steps it alike.
     """
     x = embed_tokens(cfg, params, tokens, positions[:, None])
+    totals = cache_total or {}
 
-    def attend(bp, x, c, local):
+    def attend(bp, x, c, arg):
+        local, group = arg
         # each layer cache's own length: the ring's for a window
+        s_loc = c["k"].shape[-3]
+        total = totals.get(group, s_loc)
+        start = seq_shard_axis.index * s_loc \
+            if seq_shard_axis is not None and s_loc < total else 0
         k_new, v_new = B.decode_project_kv(bp, x, cfg, positions,
                                            local=local)
         KV.write_kv(c["k"], c["v"], c["pos"], k_new, v_new, positions,
-                    cache_total=c["k"].shape[-3])
+                    cache_total=total, shard_start=start)
         x, _, _ = B.dense_block_apply(bp, x, cfg, positions, local=local,
                                       kv_cache=(c["k"], c["v"], c["pos"]),
+                                      seq_shard_axis=seq_shard_axis,
                                       dropless=True)
         return x
 
@@ -588,6 +614,9 @@ class DecoderLM(nn.Module):
                        frontend_embed)
 
     def decode_step(self, caches: List[Dict], tokens: torch.Tensor,
-                    positions: torch.Tensor
+                    positions: torch.Tensor,
+                    seq_shard_axis: Optional[SeqShardAxis] = None,
+                    cache_total: Optional[Dict[str, int]] = None
                     ) -> Tuple[torch.Tensor, List[Dict]]:
-        return decode_step(self.cfg, self.params, caches, tokens, positions)
+        return decode_step(self.cfg, self.params, caches, tokens, positions,
+                           seq_shard_axis, cache_total)

@@ -21,6 +21,11 @@ package's, on the CPU.
 * ``on_cluster_change``: the reference's plan, params bit for bit across
   it, and the oracle's factors carried over by position.
 * ``build_train_step``'s elastic arguments.
+* Fault 6: on a shared device the ``WallClockOracle`` refits a 3x
+  straggler at 3x from probes in turns.  Fault 7: the launcher profiles
+  a fleet's first plan as the oracle probes (``_best_seconds`` warms up
+  for ``warmup_s``), and the fleet phase's straggler moves the plan on
+  two H100s on NVLink, where on Cluster A's link every plan ties.
 * A two-process ring fleet on wall-clock telemetry
   (``tests/test_multiproc.py``'s elastic cycle): rank 0 8x slower, an
   adopted replan that sheds its batch, and training that continues; a
@@ -28,6 +33,8 @@ package's, on the CPU.
   plans at the same steps ends with the fleet's losses and state, bit
   for bit.
 """
+
+import time
 
 import jax
 import numpy as np
@@ -50,6 +57,9 @@ from repro_torch.core.engine import (CostModelOracle, ElasticConfig,
                                      WallClockOracle, build_train_step,
                                      migrate_state)
 from repro_torch.core.engine.elastic import PROBE_MS
+from repro_torch.core.engine.multiproc import (SHARED_PROBE_REPEATS,
+                                               SHARED_PROBE_TURNS,
+                                               SHARED_PROBE_WARMUP_S)
 from repro_torch.core.model_stats import build_model_stats
 from repro_torch.core.partition import Plan, RankPlan
 from repro_torch.core.planner import auto_solve, evaluate_plan
@@ -377,6 +387,178 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+class _SharedCardFleet:
+    """A fleet's wall-clock surface without processes.  An isolated probe
+    takes ``base(m, phase)`` times the rank's injected slowdown, and
+    ``cold`` times that right after a probe of another, slowed rank (its
+    sleep leaves the card and host the workers share idle); the passive
+    samples of the last step read ``inflate`` times the base (taken
+    right after a step on a device the other worker has just used)."""
+
+    def __init__(self, plan, inflate, cold):
+        self.n = plan.n
+        self.cold = cold
+        self.slow, self.calls, self.last = {}, [], None
+        self.last_step_samples = {
+            r.rank: (r.m, inflate * self._base(r.m, "fwd"),
+                     inflate * self._base(r.m, "bwd"))
+            for r in plan.ranks}
+
+    @staticmethod
+    def _base(m, phase):
+        return (1e-3 + 5e-4 * m) * (1.0 if phase == "fwd" else 2.0)
+
+    def probe(self, rank, m, phase, repeats=2, warmup_s=0.0):
+        self.calls.append((rank, m, phase, repeats, warmup_s))
+        t = self._base(m, phase) * self.slow.get(rank, 1.0)
+        if self.last not in (None, rank) and self.slow.get(self.last, 1) > 1:
+            t *= self.cold
+        self.last = rank
+        return t
+
+    def inject_slowdown(self, rank, factor):
+        self.slow[rank] = factor
+
+
+def _refit_ratio(oracle, plan, cm):
+    """The control loop's ingest (twice), probe sweep and refit
+    (``ElasticEngine._ingest``, ``_probe``, ``refit_cluster_model``) with
+    ``oracle``: rank 0's refit t_fwd(1) over rank 1's."""
+    from types import SimpleNamespace
+    loop = SimpleNamespace(
+        oracle=oracle, plan=plan, cm=cm, batch=plan.global_batch,
+        elastic=ElasticConfig(), telemetry=TelemetryBuffer(plan.n, 16))
+    for _ in range(2):
+        ElasticEngine._ingest(loop)
+    fwd, bwd = ElasticEngine._probe(loop)
+    refit = refit_cluster_model(cm, fwd, bwd)
+    return refit.per_rank[0].t_fwd.one(1) / refit.per_rank[1].t_fwd.one(1)
+
+
+def test_shared_device_refit_sees_the_slowdown():
+    """Fault 6 of the port: two workers on one card, rank 0 3x slower,
+    passive samples inflated 2x, a probe right after the straggler's
+    1.6x slow.  The refit must give rank 0 3x rank 1
+    (within 10%): every query warmed-up probes of 5 passes, taken in
+    turns with the other rank's at the same m, so no rank's best is its
+    probe right after the straggler's.  Probing rank by rank, as the
+    control loop asks, reads rank 1's first probe slow (below 2x)."""
+    cm, _ = _cms("tiny-llama", 16, ("L4", "A6000"))
+    plan = _plan([("L4", 4, 1, 0.5), ("A6000", 1, 1, 0.5)], 5)
+    fleet = _SharedCardFleet(plan, inflate=2.0, cold=1.6)
+    oracle = WallClockOracle()
+    oracle.bind(fleet)
+    oracle.degrade(0, 3.0)
+    ratio = _refit_ratio(oracle, plan, cm)
+    assert ratio == pytest.approx(3.0, rel=0.1)
+    assert {c[3:] for c in fleet.calls} == {(SHARED_PROBE_REPEATS,
+                                             SHARED_PROBE_WARMUP_S)}
+    # each (m, phase) in SHARED_PROBE_TURNS turns: 0, 1, 1, 0, ...
+    assert [c[0] for c in fleet.calls[:2 * SHARED_PROBE_TURNS]] == \
+        [0, 1, 1, 0] * (SHARED_PROBE_TURNS // 2)
+
+    def rank_by_rank(rank, m, phase):
+        return fleet.probe(rank, m, phase)
+    assert _refit_ratio(rank_by_rank, plan, cm) < 2.0
+
+
+def test_fleet_profile_is_measured_as_the_probes_are(monkeypatch):
+    """Fault 7: the launcher solves a fleet's first plan from samples
+    taken as the ``WallClockOracle`` takes its probes, since the elastic
+    trigger holds those probes against the plan's prediction; and
+    ``--cluster h100`` plans the fleet for H100s."""
+    from repro_torch.core import profiler
+    from repro_torch.launch import train as launch
+    seen = {}
+    real = profiler.wallclock_cluster_model
+
+    def spy(*args, **kwargs):
+        seen.update(kwargs)
+        return real(*args, **{**kwargs, "ms": (1, 2), "repeats": 1})
+    monkeypatch.setattr(profiler, "wallclock_cluster_model", spy)
+    args = launch.parser().parse_args([
+        "--arch", "tiny-llama", "--reduced", "--seq", "16", "--batch", "8",
+        "--cluster", "h100", "--substrate", "multiproc", "--nprocs", "2",
+        "--device", "cpu"])
+    _, plan, cm = launch.solve_plan(args)
+    assert seen["repeats"] == SHARED_PROBE_REPEATS * SHARED_PROBE_TURNS
+    assert seen["warmup_s"] == SHARED_PROBE_WARMUP_S
+    assert [d.name for d in cm.cluster.devices] == ["H100", "H100"]
+    assert plan.feasible
+
+
+def test_best_seconds_warms_up_for_warmup_s():
+    from repro_torch.core import profiler
+    calls = []
+
+    def fn():
+        calls.append(time.perf_counter())
+        time.sleep(0.002)
+    profiler._best_seconds(fn, torch.device("cpu"), 3, warmup_s=0.05)
+    assert calls[-3] - calls[0] >= 0.05
+    before = len(calls)
+    profiler._best_seconds(fn, torch.device("cpu"), 3)
+    assert len(calls) - before == 4
+
+
+def _flat_cm(cluster, cfg, seq, slow=None):
+    """A cost model whose every rank is launch-bound as gpt-1.3b's layer
+    reads on one H100 (~2.4 ms forward, ~6 ms forward and backward at m
+    1 to 8, the fleet phase's profile), rank ``r`` ``slow[r]`` times
+    slower."""
+    from repro_torch.core.cost_model import (ClusterCostModel, CommModel,
+                                             DeviceCost, LatencyModel)
+    from repro_torch.core.profiler import PROFILE_MS, analytic_memory
+    per = []
+    for i, spec in enumerate(cluster.devices):
+        k = (slow or {}).get(i, 1.0)
+        tf = LatencyModel(PROFILE_MS, [k * (2.4 + 0.05 * m) * 1e-3
+                                       for m in PROFILE_MS])
+        tb = LatencyModel(PROFILE_MS, [k * (6.0 + 0.15 * m) * 1e-3
+                                       for m in PROFILE_MS])
+        per.append(DeviceCost(spec, tf, tb, analytic_memory(cfg, seq), None))
+    comm = CommModel(link_gbps=cluster.link_gbps * cluster.link_efficiency,
+                     n=cluster.n)
+    return ClusterCostModel(cluster, build_model_stats(cfg, seq), per, comm)
+
+
+def test_fleet_phase_straggler_moves_the_plan_only_on_its_own_link():
+    """Fault 7's input: gpt-1.3b on 4 layers, seq 512, batch 16, two
+    ranks, rank 0 three times slower.  On Cluster A's 50 Gbps link the
+    plan's layer time is its AllGathers and ReduceScatter (every plan
+    whose compute fits under them ties, so which one is solved varies
+    with the profile); on two H100s on NVLink the plan is compute-bound
+    and even, the straggler crosses the trigger, and the re-solved plan
+    sheds rank 0 with a gain above ``min_gain``."""
+    import dataclasses
+    from repro_torch.launch.train import CLUSTERS
+    cfg = dataclasses.replace(get_arch("gpt-1.3b"), n_layers=4)
+    seq, batch, e = 512, 16, ElasticConfig()
+
+    def pair(name):
+        c = CLUSTERS[name]()
+        return dataclasses.replace(c, devices=list(c.devices[:2]))
+    cm = _flat_cm(pair("cluster-a"), cfg, seq)
+    plan = auto_solve(cm, batch)
+    ag, rs = cm.ag_latency(False), cm.rs_latency(False)
+    assert plan.predicted_layer_s == pytest.approx(2 * ag + rs)
+    assert all(r.t_fwd_s < ag and r.t_bwd_s < ag + rs for r in plan.ranks)
+
+    cm = _flat_cm(pair("h100"), cfg, seq)
+    plan = auto_solve(cm, batch)
+    assert [r.b for r in plan.ranks] == [8, 8]
+    pred = max(r.t_fwd_s + r.t_bwd_s for r in plan.ranks)
+    assert plan.predicted_layer_s == pytest.approx(pred)
+    slow = _flat_cm(pair("h100"), cfg, seq, slow={0: 3.0})
+    r0 = plan.ranks[0]
+    observed = r0.ell * (slow.per_rank[0].t_fwd.one(r0.m)
+                         + slow.per_rank[0].t_bwd.one(r0.m))
+    assert observed > (1 + e.imbalance_threshold) * pred
+    new = auto_solve(slow, batch)
+    gain = 1 - new.predicted_iter_s / evaluate_plan(slow, plan)["iter_s"]
+    assert new.ranks[0].b < plan.ranks[0].b and gain >= e.min_gain
+
+
 def test_wallclock_straggler_replans_the_ring_fleet(one_thread):
     cfg = get_arch("tiny-llama").reduced()
     seq, batch = 16, 8
@@ -385,7 +567,7 @@ def test_wallclock_straggler_replans_the_ring_fleet(one_thread):
                                  device="cpu")
     plan = auto_solve(cm, batch)
     assert plan.feasible, plan.infeasible_reason
-    oracle = WallClockOracle(probe_repeats=1)
+    oracle = WallClockOracle()
     eng = build_train_step(
         cfg, plan, substrate="multiproc", topology="ring", sanitize=True,
         adam=AdamConfig(lr=1e-3), seq_len=seq, device="cpu",
