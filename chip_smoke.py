@@ -63,12 +63,13 @@ Phases, each printing one JSON line:
              the flash kernel once per layer, no serve a backward kernel;
              each phase starts with the earlier phases' memory freed;
 6c. serve_gemma2, serve_zamba2, serve_yi34b — ``launch.serve.serve`` at
-             full width and depth (bf16, random weights from a seed):
-             gemma2-9b at batch 2, prompt 8192 (its context, twice its
-             local window: the local layers' windows mask and their 4096
-             ring slots wrap), 32 tokens, 42 flash launches a prefill;
-             zamba2-7b at batch 8, prompt 2048, 32 tokens, 81 SSD-scan and
-             13 flash launches a prefill; yi-34b at batch 8, prompt 512, 32
+             full width and depth (bf16, random weights from a seed), but
+             zamba2's depth: gemma2-9b at batch 2, prompt 8192 (its
+             context, twice its local window: the local layers' windows
+             mask and their 4096 ring slots wrap), 32 tokens, 42 flash
+             launches a prefill; zamba2-7b on 42 of 81 layers at batch 8,
+             prompt 2048, 32 tokens, 42 SSD-scan and 7 flash launches a
+             prefill; yi-34b at batch 8, prompt 512, 32
              tokens, 60 flash launches;
 6d. serve_musicgen, serve_pixtral — ``launch.serve.serve`` at full width
              and depth (bf16, random weights from a seed) with the prompt's
@@ -279,6 +280,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -366,6 +368,12 @@ MOE_PREFILL_SHAPES = {
     "qwen3-prefill": (8, 32, 4, 512, 512, 128, True, 0, 0.0),
     "mixtral-prefill": (8, 32, 8, 512, 512, 128, True, 4096, 0.0)}
 MOE_TRAIN_SHAPE = (4, 32, 4, 512, 512, 128, True, 0, 0.0)
+# the flash kernel at a rank's heads of phase serve_seqshard's
+# tensor-parallel prefills on mesh (1, 2): stablelm-1.6b 2 x 8192 at
+# 16/16 heads, D 64; qwen3-moe 8 x 512 at 16/2, D 128
+TP_PREFILL_SHAPES = {
+    "stablelm-rank": (2, 16, 16, 8192, 8192, 64, True, 0, 0.0),
+    "qwen3-rank": (8, 16, 2, 512, 512, 128, True, 0, 0.0)}
 # the backward at a gemma2-9b local layer with its window masking (S 4608;
 # GQA 16/8, D 256, softcap 50), and at zamba2-7b's shared block at the
 # two-rank plan's rank 0 (4 rows; MHA 32/32, D 112)
@@ -468,6 +476,10 @@ MOE_TRAIN_LAYERS = 2
 # (zamba2: one group and the shared block) on the two-rank plan
 GEMMA2, ZAMBA2, YI = "gemma2-9b", "zamba2-7b", "yi-34b"
 GEMMA2_BATCH, GEMMA2_PROMPT = 2, 8192
+# serve_zamba2 at full width on 42 of its 81 layers (7 applications of
+# the shared block): the costliest of the earlier serve phases, cut in
+# depth to win back time for serve_seqshard
+ZAMBA2_SERVE_LAYERS = 42
 PAIR_CONSISTENCY = {GEMMA2: (4, 4200), ZAMBA2: (6, 1024)}
 PAIR_TRAIN_LAYERS = {GEMMA2: 4, ZAMBA2: 6}
 # train_gemma2's losses on one batch repeated, at Adam's default lr and a
@@ -481,6 +493,8 @@ PAIR_PREFILL_SHAPES = {
     "gemma2-global-prefill": (2, 16, 8, 8192, 8192, 256, True, 0, 50.0),
     "zamba2-prefill": (8, 32, 32, 2048, 2048, 112, True, 0, 0.0)}
 ZAMBA2_SSD_SHAPE = (8, 112, 2048, 64, 64)     # b, h, l, p, n at its prefill
+# mamba2-370m's tensor-parallel prefill: a rank's 16 of 32 heads
+MAMBA2_RANK_SSD_SHAPE = (8, 16, 2048, 64, 128)
 # the zamba2 element's profile (printed, not a gate)
 ZAMBA2_PROFILE_MS = (1, 2, 4)
 # the frontend models, served at full width and depth with precomputed
@@ -554,49 +568,79 @@ SHARED_LOSS_TOL, SHARED_P_TOL = 1e-4, 2e-4   # tests/test_parity_matrix.py
 # Adam's first moment after the step, (1 - b1) g, against the loopback's,
 # relative in the 2-norm of each leaf: fp32 grads summed in another order
 SHARED_M_TOL = 1e-4
-# phase serve_seqshard: stablelm-1.6b at full width and depth serves
-# SEQSHARD_BATCH x SEQSHARD_PROMPT tokens and SEQSHARD_GEN greedy ones
-# (the first from the prefill), its KV cache of prompt + gen slots split
-# along the sequence over the two ranks of mesh (1, 2), which share the
-# card (gloo over pinned host copies); each decode step's logits held
-# against the unsharded decode within SEQSHARD_TOL of max|logits| (fp32);
-# the timed bf16 decode's logits against the unsharded fp32 ones within
-# SEQSHARD_BF16_TOL, on each step whose fed tokens agree: the bf16 decode
-# drifted 1.95% from the bf16 unsharded one (24 random-weight layers);
-# the phase measures how far one shard alone (the other dropped) moves
-# the first step's logits, and fails unless that exceeds this limit
-SEQSHARD_ARCH = "stablelm-1.6b"
-SEQSHARD_BATCH, SEQSHARD_PROMPT, SEQSHARD_GEN = 2, 8192, 16
+# phase serve_seqshard: tensor-parallel serving (launch.serving, the
+# reference's build_prefill / build_decode) of each of SEQSHARD_MODELS
+# (arch, layers or 0 for all, batch, prompt, generated tokens: the first
+# from the prefill) in one world of the two ranks of mesh (1, 2), which
+# share the card (gloo over pinned host copies): each rank holds its
+# shard of every weight and of every cache leaf (the KV cache's sequence,
+# the SSM state's heads), at the dry-run's bytes exactly.  The prefill is
+# held block by block against rank 0's unsharded blocks, each fed the
+# split prefill's input to it (bf16 rounding would compound over
+# mamba2's 48 layers to ~10% of a state's max on the H100, and flip
+# qwen3's expert choices): the embedding's output, every block's output,
+# the last-position logits and every cache leaf gathered from the ranks'
+# shards (layer by layer) within SEQSHARD_BF16_TOL of max|value|; each
+# decode step's logits against the unsharded decode
+# within SEQSHARD_TOL (fp32); the timed bf16 decode's logits against the
+# unsharded fp32 ones within SEQSHARD_BF16_TOL, on each row whose fed
+# tokens and whose experts at every MoE layer agree at every step so far
+# (qwen3-moe's routing flips under bf16 rounding).  The phase
+# measures how far the first step's logits move with every rank's
+# partial sums skipped (the other shards dropped), and fails unless that
+# exceeds SEQSHARD_BF16_TOL
+SEQSHARD_MODELS = [("stablelm-1.6b", 0, 2, 8192, 16),
+                   ("mamba2-370m", 0, 8, 2048, 16),
+                   ("qwen3-moe-30b-a3b", 4, 8, 512, 16)]
 SEQSHARD_MESH = spmd_world.Mesh((1, 2), ("data", "model"))
 SEQSHARD_TOL = 2e-3
 SEQSHARD_BF16_TOL = 6e-2
 
 
 CARD: list = []     # the card's name and power limit (phase device)
+PHASE_T0: list = []  # the host clock at the start of each running phase
+
+
+def _phase(fn):
+    """A phase function: the lines it emits carry its seconds so far."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        PHASE_T0.append(time.perf_counter())
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_T0.pop()
+    return run
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries the card's name and power
-    limit as ``nvidia-smi`` reads them."""
+    limit as ``nvidia-smi`` reads them, and the seconds since its phase
+    began (where the line sets none of its own)."""
     if "phase" in obj and CARD:
         obj = {**obj, "card": CARD[0]}
+    if "phase" in obj and PHASE_T0 and "seconds" not in obj:
+        obj = {**obj, "seconds": time.perf_counter() - PHASE_T0[-1]}
     print(json.dumps(obj), flush=True)
 
 
 def _roofline(cfg, kind: str, seq: int, batch: int,
-              measured_s: float) -> dict:
-    """The H100's roofline terms (``repro_torch.roofline``, one card: no
-    tensor parallelism, no collectives on the wire) of a ``kind`` step of
-    ``batch`` sequences of ``seq`` tokens (the cache's length for a
-    decode token) beside the measured seconds; printed, not a gate."""
-    t = roofline.terms_for(cfg, InputShape(kind, seq, batch, kind), 1,
-                           model_par=1)
+              measured_s: float, chips: int = 1) -> dict:
+    """The H100's roofline terms (``repro_torch.roofline``) of a ``kind``
+    step of ``batch`` sequences of ``seq`` tokens (the cache's length for
+    a decode token) on ``chips`` cards, tensor-parallel over all of them
+    (one card: no collectives on the wire), beside the measured seconds;
+    printed, not a gate."""
+    t = roofline.terms_for(cfg, InputShape(kind, seq, batch, kind), chips,
+                           model_par=chips)
     return {"compute_s": t.compute_s, "memory_s": t.memory_s,
-            "collective_s": t.collective_s, "dominant": t.dominant,
+            "collective_s": t.collective_s, "coll_bytes": t.coll_bytes,
+            "dominant": t.dominant,
             "bound_s": t.bound_s, "measured_s": measured_s,
             "measured_over_bound": measured_s / t.bound_s}
 
 
+@_phase
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -610,6 +654,7 @@ def phase_device() -> dict:
     return dev
 
 
+@_phase
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -822,6 +867,7 @@ def _sass_counts(name: str) -> dict:
     return counts
 
 
+@_phase
 def phase_kernel() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -863,6 +909,8 @@ def phase_kernel() -> dict:
             for name, case in PAIR_PREFILL_SHAPES.items()}
     frontend = {name: _gqa_timing(name, case, errs)
                 for name, case in FRONTEND_PREFILL_SHAPES.items()}
+    tp = {name: _gqa_timing(name, case, errs)
+          for name, case in TP_PREFILL_SHAPES.items()}
     res = {"phase": "kernel", "max_abs_err": errs, "sass": sass,
            "shape": SERVE_SHAPE, "dtype": "bfloat16",
            "variant": flash_ops.VARIANTS[dtype], "kernel_ms": kernel_ms,
@@ -870,12 +918,14 @@ def phase_kernel() -> dict:
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
            "kernel_tflops": flops / kernel_ms / 1e9, "moe_shapes": gqa,
-           "pair_hybrid_shapes": pair, "frontend_shapes": frontend}
+           "pair_hybrid_shapes": pair, "frontend_shapes": frontend,
+           "tp_rank_shapes": tp}
     emit(res)
     return {"variant": flash_ops.VARIANTS[dtype], "max_abs_err": serve_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "moe_shapes": gqa,
-            "pair_hybrid_shapes": pair, "frontend_shapes": frontend}
+            "pair_hybrid_shapes": pair, "frontend_shapes": frontend,
+            "tp_rank_shapes": tp}
 
 
 def _gqa_timing(name, case, errs) -> dict:
@@ -990,6 +1040,7 @@ def _ssd_bound(shape, dtype):
     return _least_ms(nbytes, flops, dtype)
 
 
+@_phase
 def phase_ssd_kernel() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1037,6 +1088,7 @@ def phase_ssd_kernel() -> dict:
     variant = ssd_ops.VARIANTS[torch.bfloat16]
     del inputs
     zamba2 = _ssd_timing(ZAMBA2_SSD_SHAPE, errs)
+    mamba2_rank = _ssd_timing(MAMBA2_RANK_SSD_SHAPE, errs)
     emit({"phase": "ssd_kernel", "max_rel_err": errs,
           "serve_max_abs_err": serve_err, "shape": shape,
           "dtype": "bfloat16", "variant": variant, "sass": sass,
@@ -1048,10 +1100,11 @@ def phase_ssd_kernel() -> dict:
           "library_note": "no single PyTorch call computes the SSD scan",
           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
           "flops": flops, "kernel_tflops": flops / kernel_ms / 1e9,
-          "zamba2_shape": zamba2})
+          "zamba2_shape": zamba2, "mamba2_rank_shape": mamba2_rank})
     return {"variant": variant, "max_abs_err": serve_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by, "zamba2_shape": zamba2}
+            "bound_by": bound_by, "zamba2_shape": zamba2,
+            "mamba2_rank_shape": mamba2_rank}
 
 
 def _ssd_timing(shape, errs) -> dict:
@@ -1082,6 +1135,7 @@ def _frontend(cfg, batch: int, seq: int, device, seed: int):
                        device=device)
 
 
+@_phase
 def phase_serve(arch: str, batch: int, prompt: int, gen: int,
                 phase: str, expect: dict, layers: int = 0) -> dict:
     """Serve ``arch`` at full width (its first ``layers`` layers when
@@ -1157,6 +1211,7 @@ def phase_serve(arch: str, batch: int, prompt: int, gen: int,
     return launches
 
 
+@_phase
 def phase_consistency(arch: str, batch: int, seq: int,
                       layers: int = 0) -> dict:
     """fp32 at full width (the first ``layers`` layers when given):
@@ -1361,6 +1416,7 @@ def _kernel_ms_by_name(fn, iters: int, marks, tries: int = 3) -> dict:
                          f"over {iters} calls")
 
 
+@_phase
 def phase_flash_bwd() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1616,6 +1672,7 @@ def _ssd_bwd_occupancy() -> dict:
     return out
 
 
+@_phase
 def phase_ssd_bwd() -> dict:
     """The SSD backward kernels against the plain version's autograd on
     the card; the bf16 kernel's tensor-core instructions, registers and
@@ -1737,6 +1794,7 @@ def _launch_counts() -> dict:
             "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES}
 
 
+@_phase
 def phase_train_grads() -> dict:
     """fp32, TF32 off: reduced models' loss and grads through the kernels
     on the card against the plain versions on the CPU, same params; the
@@ -1872,6 +1930,7 @@ def _same_batch_losses(cfg, plan, block, lr: float) -> list:
     return losses
 
 
+@_phase
 def phase_train(arch: str = TRAIN_ARCH, layers: int = 0,
                 phase: str = "train", trend_lrs=()) -> dict:
     """``arch`` at full width (its first ``layers`` layers when given,
@@ -2047,6 +2106,7 @@ def _loopback_reference(cfg, plan, blocks) -> dict:
     return run
 
 
+@_phase
 def phase_train_multiproc() -> dict:
     """gpt-1.3b at full width and depth on the fixed two-rank plan
     (TRAIN_RANKS, seq 512, ``layered``, blocks of ``SyntheticStream``
@@ -2182,6 +2242,7 @@ def _held_out_errors(samples) -> dict:
     return {m: abs(model.one(m) - t[m]) / t[m] for m in PROFILE_HELD_MS}
 
 
+@_phase
 def phase_profile() -> dict:
     """The profiler on the card: one gpt-1.3b layer at seq 512, forward
     and backward, fit and held-out error; then the paper's workflow,
@@ -2411,6 +2472,7 @@ def _planned_run(phase: str, argv) -> dict:
     return res
 
 
+@_phase
 def phase_plan_train() -> dict:
     """gpt-1.3b at full width and depth on the plan ``launch.train``
     solves for Cluster A at batch 128, through its ``_train_loop``: 1
@@ -2421,6 +2483,7 @@ def phase_plan_train() -> dict:
     return res["launches_per_step"]
 
 
+@_phase
 def phase_plan_train_mamba2() -> dict:
     """mamba2-370m at full width and depth on the plan ``launch.train``
     solves for Cluster A at seq 2048, batch 32, through its
@@ -2563,6 +2626,7 @@ class _ElasticSteps:
         return state, loss
 
 
+@_phase
 def phase_plan_train_elastic() -> dict:
     """The launcher's elastic path (``solve_plan``, ``elastic_knobs``,
     ``build_engine``, ``_train_loop``) on gpt-1.3b at full width and
@@ -2678,6 +2742,7 @@ def _elastic_replay(cfg, args, plan0, events, blocks) -> dict:
     return {"losses": losses, "export": export}
 
 
+@_phase
 def phase_train_elastic_multiproc() -> dict:
     """The elastic runtime on the process fleet with wall-clock telemetry:
     gpt-1.3b at full width on ELASTIC_MP_LAYERS layers, two worker
@@ -2839,6 +2904,7 @@ def phase_train_elastic_multiproc() -> dict:
     return by_plan
 
 
+@_phase
 def phase_verify_protocol() -> dict:
     """The offline protocol checker's entry point (``python -m
     repro_torch.core.engine.verify``, run here on the machine's host):
@@ -2945,6 +3011,7 @@ def _check_spmd_dryrun(cfg, mesh, plan, args, records) -> dict:
             "collective_bytes_unpadded": floor}
 
 
+@_phase
 def phase_train_spmd() -> dict:
     """The launcher's ``--runtime spmd`` (``launch.train.run_spmd``) on
     gpt-1.3b at full width and depth: the world sized from the card count
@@ -3035,63 +3102,60 @@ def phase_train_spmd() -> dict:
                                              "flash_bwd_dkdv")}
 
 
-def phase_serve_seqshard() -> dict:
-    """stablelm-1.6b at full width and depth through
-    ``launch.serving.serve_sharded``: SEQSHARD_BATCH x SEQSHARD_PROMPT
-    prompt tokens, SEQSHARD_GEN greedy tokens, the KV cache split along
-    the sequence over the two ranks of SEQSHARD_MESH, which share the card
-    (gloo over pinned host copies: a check of correctness, not of a
-    cross-card path).  Each rank draws the weights from one seed on the
-    card, runs the whole prefill through the flash kernel, keeps its
-    slots and decodes greedily in bf16 across the split.  Then the check,
-    in fp32 (TF32 off) on fp32 copies of the weights and the prefilled
-    caches, the port's parity rule on the card: rank 0 decodes on the
-    whole cache and every rank's sharded decode is teacher-forced on its
-    tokens.  Fails unless every step's logits on every rank are within
-    SEQSHARD_TOL of max|logits| of the unsharded ones, the greedy tokens
-    agree wherever the unsharded top-2 margin exceeds that bound, each
-    rank's bf16 tokens are the same, the bf16 decode's logits are within
-    SEQSHARD_BF16_TOL of the unsharded fp32 ones on every step whose fed
-    tokens agree (the first at least), the first step merged over one
-    shard alone moves them by more than that limit, each rank's prefill
-    launched the
-    flash kernel once a layer (``bf16-mma``) and nothing else, and each
-    rank's KV shard holds the memory dry-run's per-rank cache bytes for
-    (stablelm-1.6b, that batch and cache length, mesh (1, 2)), exactly.
-    Returns each rank's flash launches."""
-    held = torch.cuda.memory_allocated()
-    if held > 2**30:
-        raise AssertionError(f"serve_seqshard: {held} B still held by "
-                             f"earlier phases")
-    cfg = get_arch(SEQSHARD_ARCH)
-    place = spmd_world.placement("cuda", SEQSHARD_MESH.size)
-    if (place.backend, place.staged) != ("gloo", True):
-        raise AssertionError(f"serve_seqshard: {place}")
-    batch, prompt, gen = SEQSHARD_BATCH, SEQSHARD_PROMPT, SEQSHARD_GEN
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                (batch, prompt))
-    t0 = time.perf_counter()
-    out = serving.serve_sharded(cfg, prompts, gen, SEQSHARD_MESH, "cuda",
-                                seed=0, check=True)
-    run_s = time.perf_counter() - t0
-    _progress("serve_seqshard", t0)
+def _seqshard_want(cfg, n: int) -> tuple:
+    """(kernel launches, launches by head count) a rank's tensor-parallel
+    prefill must make: the flash kernel once an attention layer at the
+    rank's query and KV heads, or the SSD scan once an SSM layer at its
+    heads, all bf16."""
+    if cfg.is_ssm:
+        heads = cfg.d_inner // cfg.ssm_head_dim // n
+        return ({"ssd_scan": cfg.n_layers,
+                 "ssd_scan/bf16-mma": cfg.n_layers},
+                {"flash_attention": {},
+                 "ssd_scan": {str(heads): cfg.n_layers}})
+    heads = str((cfg.n_heads // n, cfg.n_kv_heads // n))
+    return ({"flash_attention": cfg.n_layers,
+             "flash_attention/bf16-mma": cfg.n_layers},
+            {"flash_attention": {heads: cfg.n_layers}, "ssd_scan": {}})
+
+
+def _check_seqshard(cfg, out, batch: int, prompt: int, gen: int,
+                    run_s: float) -> dict:
+    """The checks of :func:`phase_serve_seqshard` on one model's payloads;
+    emits its line and returns each rank's prefill launches."""
+    name = f"serve_seqshard {cfg.name}"
     whole = out[0].arrays["whole_logits"]     # fp32, (gen - 1, B, V)
     # the tokens each step of the unsharded decode was fed, (gen - 1, B)
     fed = out[0].arrays["whole_tokens"][:, :-1].T
-    cache = dryrun.serving_bytes(cfg, SEQSHARD_MESH, batch, prompt + gen)
-    want = {"flash_attention": cfg.n_layers,
-            "flash_attention/bf16-mma": cfg.n_layers}
-    errs, agree, bf16_errs, dropped_errs, bf16_steps = [], 0, [], [], 0
+    want_bytes = dryrun.serving_bytes(cfg, SEQSHARD_MESH, batch,
+                                      prompt + gen)
+    want, want_heads = _seqshard_want(cfg, SEQSHARD_MESH.size)
+    errs, agree, bf16_errs, dropped_errs, bf16_rows = [], 0, [], [], 0
+    whole_routes = out[0].arrays["whole_routes"]   # (gen - 1, layers, B, K)
+    # the prefill, block by block: rank 0's unsharded blocks fed the split
+    # prefill's inputs to them, its embedding, logits and every cache leaf
+    # (layer by layer) within SEQSHARD_BF16_TOL of the split's
+    pre = out[0].meta["prefill_check"]
+    pre_errs = {"embed": pre["embed"], "blocks": max(pre["blocks"]),
+                "logits": pre["logits"],
+                "caches": max(pre["caches"].values())}
+    if not max(pre_errs.values()) <= SEQSHARD_BF16_TOL:
+        raise AssertionError(f"{name}: the split prefill differs from the "
+                             f"unsharded one fed its inputs by {pre_errs} "
+                             f"> {SEQSHARD_BF16_TOL}: {pre}")
     top2 = np.sort(whole, axis=-1)[..., -2:]
     margin = top2[..., 1] - top2[..., 0]
     for p in out:
         logits, meta = p.arrays["check_logits"], p.meta
+        rank = meta["rank"]
+        r = slice(*meta["rows"])
+        bf16_errs.append([])
         if not np.array_equal(p.arrays["tokens"], out[0].arrays["tokens"]):
-            raise AssertionError(f"serve_seqshard rank {meta['rank']}: bf16 "
-                                 f"tokens differ from rank 0's")
+            raise AssertionError(f"{name} rank {rank}: bf16 tokens differ "
+                                 f"from rank 0's")
         if logits.shape != whole.shape or not np.isfinite(logits).all():
-            raise AssertionError(f"serve_seqshard rank {meta['rank']}: "
-                                 f"logits {logits.shape}, finite "
+            raise AssertionError(f"{name} rank {rank}: logits "
+                                 f"{logits.shape}, finite "
                                  f"{np.isfinite(logits).all()}")
         for i in range(whole.shape[0]):
             scale = float(np.abs(whole[i]).max())
@@ -3099,87 +3163,176 @@ def phase_serve_seqshard() -> dict:
             err = float(np.abs(logits[i] - whole[i]).max())
             errs.append(err / scale)
             if not err <= bound:
-                raise AssertionError(f"serve_seqshard rank {meta['rank']} "
-                                     f"step {i}: logits differ by {err} > "
-                                     f"{bound}")
+                raise AssertionError(f"{name} rank {rank} step {i}: logits "
+                                     f"differ by {err} > {bound}")
             sure = margin[i] > bound
             if not (logits[i].argmax(-1) == whole[i].argmax(-1))[sure].all():
-                raise AssertionError(f"serve_seqshard rank {meta['rank']} "
-                                     f"step {i}: greedy tokens differ")
+                raise AssertionError(f"{name} rank {rank} step {i}: greedy "
+                                     f"tokens differ")
             agree += int(sure.sum())
-        # the bf16 decode, on the steps whose fed tokens so far agree
-        r = slice(*meta["rows"])
+        # the bf16 decode within SEQSHARD_BF16_TOL of the fp32 one, on the
+        # rows whose fed tokens and whose experts at every MoE layer have
+        # been the fp32 decode's at every step so far
         same = np.cumprod(p.arrays["tokens"][:, :-1].T == fed[:, r], axis=0)
+        routed = np.cumprod((p.arrays["routes"] == whole_routes[:, :, r]
+                             ).all(axis=(1, 3)), axis=0)
         for i in range(whole.shape[0]):
-            rows = same[i].astype(bool)
+            rows = (same[i] * routed[i]).astype(bool)
             if not rows.any():
                 continue
             scale = float(np.abs(whole[i]).max())
             err = float(np.abs(p.arrays["logits"][i][rows] -
                                whole[i][r][rows]).max()) / scale
-            bf16_errs.append(err)
-            bf16_steps += 1
+            bf16_errs[-1].append(err)
+            bf16_rows += int(rows.sum())
             if not err <= SEQSHARD_BF16_TOL:
                 raise AssertionError(
-                    f"serve_seqshard rank {meta['rank']} step {i}: bf16 "
-                    f"logits differ by {err} of max|logits| > "
-                    f"{SEQSHARD_BF16_TOL}")
+                    f"{name} rank {rank} step {i}: bf16 logits differ by "
+                    f"{err} of max|logits| > {SEQSHARD_BF16_TOL}; by step "
+                    f"{bf16_errs}")
+        if not bf16_errs[-1]:
+            raise AssertionError(f"{name} rank {rank}: no bf16 step "
+                                 f"checked")
         dropped = float(np.abs(p.arrays["dropped_logits"] - whole[0][r]
                                ).max()) / float(np.abs(whole[0]).max())
         dropped_errs.append(dropped)
         if not dropped > SEQSHARD_BF16_TOL:
             raise AssertionError(
-                f"serve_seqshard rank {meta['rank']}: one shard alone moves "
-                f"the logits by {dropped} of max|logits|, within the bf16 "
-                f"limit {SEQSHARD_BF16_TOL}")
+                f"{name} rank {rank}: the partial sums skipped move the "
+                f"logits by {dropped} of max|logits|, within the bf16 limit "
+                f"{SEQSHARD_BF16_TOL}")
         got = {k: n for k, n in meta["launches"].items() if n}
-        if got != want:
-            raise AssertionError(f"serve_seqshard rank {meta['rank']}: "
-                                 f"prefill launches {got}, expected {want}")
-        if meta["kv_bytes"] != cache["cache"]:
-            raise AssertionError(f"serve_seqshard rank {meta['rank']}: KV "
-                                 f"shard {meta['kv_bytes']} B, the dry-run's "
-                                 f"{cache['cache']} B")
+        if got != want or meta["launch_heads"] != want_heads:
+            raise AssertionError(
+                f"{name} rank {rank}: prefill launches {got}, by heads "
+                f"{meta['launch_heads']}; expected {want}, {want_heads}")
+        if (meta["weight_bytes"], meta["cache_bytes"]) != \
+                (want_bytes["weights"], want_bytes["cache"]):
+            raise AssertionError(
+                f"{name} rank {rank}: weights {meta['weight_bytes']} B, "
+                f"caches {meta['cache_bytes']} B; the dry-run's "
+                f"{want_bytes}")
     steps = gen - 1
     meta0 = out[0].meta
     shard_s = max(p.meta["decode_s"] for p in out)
-    emit({"phase": "serve_seqshard", "arch": cfg.name,
+    prefill_s = max(p.meta["prefill_s"] for p in out)
+    n = SEQSHARD_MESH.size
+    emit({"phase": "serve_seqshard", "arch": cfg.name, "seconds": run_s,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab_size, "batch": batch, "prompt": prompt,
           "gen": gen, "cache_slots": prompt + gen,
-          "mesh": SEQSHARD_MESH.shape, "backend": place.backend,
-          "devices": place.devices, "run_s": run_s,
-          "world_start_s": meta0["world_start_s"],
+          "mesh": SEQSHARD_MESH.shape,
+          "note": "two ranks share one card over gloo through pinned host "
+                  "copies: a check of correctness, not a cross-card speed",
           "prefill_ms": [p.meta["prefill_s"] * 1e3 for p in out],
           "decode_tok_s_sharded": steps * batch / shard_s,
           "check_fp32_decode_tok_s": {
               "unsharded": steps * batch / meta0["whole_decode_s"],
               "sharded": steps * batch / max(p.meta["check_decode_s"]
                                              for p in out)},
-          "collectives_per_token": {
-              k: n / steps for k, n in meta0["collectives"].items()},
-          "host_bytes_per_token": [p.meta["host_bytes"] / steps
-                                   for p in out],
-          "kv_shard_bytes": [p.meta["kv_bytes"] for p in out],
-          "dryrun_bytes": cache,
+          "prefill_collectives": meta0["prefill_collectives"],
+          "prefill_host_bytes": [p.meta["prefill_host_bytes"] for p in out],
+          "collectives_per_step": {
+              "merge": {k: c / steps for k, c in
+                        meta0["collectives"].items()},
+              "tensor_parallel": {k: c / steps for k, c in
+                                  meta0["tp_collectives"].items()}},
+          "collective_bytes_per_step": {
+              k: c / steps for k, c in meta0["collective_bytes"].items()},
+          "host_bytes_per_step": [p.meta["host_bytes"] / steps
+                                  for p in out],
+          "weight_bytes": [p.meta["weight_bytes"] for p in out],
+          "cache_bytes": [p.meta["cache_bytes"] for p in out],
+          "dryrun_bytes": want_bytes,
           "rank_peak_gib": [p.meta["peak_bytes"] / 2**30 for p in out],
           "launches": [p.meta["launches"] for p in out],
+          "launch_heads": [p.meta["launch_heads"] for p in out],
           "logit_err_over_max": max(errs), "tolerance": SEQSHARD_TOL,
           "greedy_rows_checked": agree,
-          "bf16_logit_err_over_max": max(bf16_errs),
-          "bf16_steps_checked": bf16_steps,
+          "bf16_logit_err_over_max": max(x for e in bf16_errs for x in e),
+          "bf16_rows_checked": bf16_rows,
           "bf16_tolerance": SEQSHARD_BF16_TOL,
-          "dropped_shard_err_over_max": dropped_errs,
+          "bf16_logit_err_by_rank_step": bf16_errs,
+          "route_agreement_by_step": (
+              (out[0].arrays["routes"] == whole_routes).all(axis=(1, 3))
+              .mean(axis=1).tolist()),
+          "prefill_block_by_block_err_over_max": pre_errs,
+          "prefill_block_err_by_block": pre["blocks"],
+          "prefill_cache_err_by_leaf": pre["caches"],
+          "dropped_sums_err_over_max": dropped_errs,
           "tokens_seq0": out[0].arrays["tokens"][0].tolist(),
-          # both ranks prefill the whole batch on the card at once
-          "roofline_prefill_both_ranks": _roofline(
-              cfg, "prefill", prompt, batch * len(out),
-              max(p.meta["prefill_s"] for p in out)),
-          "roofline_decode_token_sharded": _roofline(
-              cfg, "decode", prompt + gen, batch, shard_s / steps)})
+          # the H100's terms for a tensor-parallel pair on NVLink
+          "roofline_prefill_rank": _roofline(
+              cfg, "prefill", prompt, batch, prefill_s, chips=n),
+          "roofline_decode_token": _roofline(
+              cfg, "decode", prompt + gen, batch, shard_s / steps,
+              chips=n)})
+    kind = "ssd_scan" if cfg.is_ssm else "flash_attention"
+    return {f"rank{p.meta['rank']}": p.meta["launches"][kind] for p in out}
+
+
+@_phase
+def phase_serve_seqshard() -> dict:
+    """Tensor-parallel serving through ``launch.serving.serve_sharded``
+    (the reference's ``build_prefill`` / ``build_decode``) of each of
+    SEQSHARD_MODELS at full width, in one world of the two ranks of
+    SEQSHARD_MESH, which share the card (gloo over pinned host copies: a
+    check of correctness, not of a cross-card path).  Each rank draws the
+    weights from one seed on the card and keeps its shard (heads, d_ff,
+    experts, vocab, SSM channels over 'model'), prefills through the
+    flash or SSD kernel at its heads, its K/V moved to its slots of the
+    sequence and its SSM state to its heads, and decodes greedily in bf16,
+    issuing the collectives GSPMD would insert.  Then the check against
+    the unsharded path, which rank 0 runs on the whole weights: its
+    prefill, each block fed the split prefill's input to it, then, in
+    fp32 (TF32 off) on fp32 copies of the weights and the prefilled
+    caches, the port's parity rule on the card, its greedy decode of the
+    gathered whole caches, on whose tokens every rank's sharded decode is
+    teacher-forced.  Fails unless, for each model, the split prefill's
+    embedding, block outputs, last-position logits and every leaf of its
+    caches gathered from the ranks' shards are within SEQSHARD_BF16_TOL of
+    the unsharded blocks', every decode step's logits on
+    every rank are within SEQSHARD_TOL of max|logits| of the unsharded
+    ones, the greedy tokens agree wherever the unsharded top-2 margin
+    exceeds that bound, each rank's bf16 tokens are the same, the bf16
+    decode's logits are within SEQSHARD_BF16_TOL of the unsharded fp32
+    ones on every row whose fed tokens and expert choices agree so far
+    (one step at least), the first step with the partial sums skipped
+    moves them by more than that limit, each rank's prefill launched the
+    flash or SSD kernel once a layer at its heads (``bf16-mma``) and
+    nothing else, and each rank's weights and caches hold the memory
+    dry-run's per-rank
+    bytes exactly.  Returns each model's ranks' launches."""
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise AssertionError(f"serve_seqshard: {held} B still held by "
+                             f"earlier phases")
+    place = spmd_world.placement("cuda", SEQSHARD_MESH.size)
+    if (place.backend, place.staged) != ("gloo", True):
+        raise AssertionError(f"serve_seqshard: {place}")
+    t_phase = time.perf_counter()
+    launches = {}
+    with spmd_world.World(SEQSHARD_MESH, "cuda") as world:
+        start_s = time.perf_counter() - t_phase
+        for arch, layers, batch, prompt, gen in SEQSHARD_MODELS:
+            cfg = get_arch(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            prompts = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (batch, prompt))
+            t0 = time.perf_counter()
+            out = serving.serve_sharded(cfg, prompts, gen, SEQSHARD_MESH,
+                                        "cuda", seed=0, check=True,
+                                        world=world)
+            run_s = time.perf_counter() - t0
+            _progress(f"serve_seqshard {arch}", t0)
+            launches[arch] = _check_seqshard(cfg, out, batch, prompt, gen,
+                                             run_s)
+    emit({"phase": "serve_seqshard_world", "backend": place.backend,
+          "devices": place.devices, "world_start_s": start_s,
+          "seconds": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
-    return {f"rank{p.meta['rank']}": p.meta["launches"]["flash_attention"]
-            for p in out}
+    return launches
 
 
 def _m_rel(got: dict, want: dict) -> float:
@@ -3212,6 +3365,7 @@ def _p_close(got: dict, want: dict, v: dict, bound: float) -> tuple:
     return well_err, all_err
 
 
+@_phase
 def phase_train_spmd_shared() -> dict:
     """Two uneven ranks of the SPMD runtime on the one card: gpt-1.3b at
     full width on SHARED_LAYERS layers, fp32 (TF32 off), seq 512, the
@@ -3402,7 +3556,8 @@ def main() -> int:
             MIXTRAL, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_mixtral",
             {"flash_attention": MIXTRAL_SERVE_LAYERS, "ssd_scan": 0},
             layers=MIXTRAL_SERVE_LAYERS)}
-    zamba2 = get_arch(ZAMBA2)
+    zamba2 = dataclasses.replace(get_arch(ZAMBA2),
+                                 n_layers=ZAMBA2_SERVE_LAYERS)
     pair_launches = {
         "serve_gemma2": phase_serve(
             GEMMA2, GEMMA2_BATCH, GEMMA2_PROMPT, SERVE_GEN, "serve_gemma2",
@@ -3410,7 +3565,7 @@ def main() -> int:
         "serve_zamba2": phase_serve(
             ZAMBA2, MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, "serve_zamba2",
             {"flash_attention": zamba2.n_layers // zamba2.hybrid_attn_every,
-             "ssd_scan": zamba2.n_layers}),
+             "ssd_scan": zamba2.n_layers}, layers=ZAMBA2_SERVE_LAYERS),
         "serve_yi34b": phase_serve(
             YI, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, "serve_yi34b",
             {"flash_attention": get_arch(YI).n_layers, "ssd_scan": 0})}
@@ -3470,7 +3625,9 @@ def main() -> int:
              for k, v in elastic_mp_launches.items()},
          "launches_train_spmd_step": {
              k: v["flash_attention"] for k, v in spmd_launches.items()},
-         "launches_serve_seqshard": seqshard_launches,
+         "launches_serve_sharded": {
+             k: v for k, v in seqshard_launches.items()
+             if not get_arch(k).is_ssm},
          **flash},
         *({"name": f"flash_bwd_{w}", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3502,7 +3659,10 @@ def main() -> int:
          "launches_planned_step": mamba_launches["ssd_scan"],
          "launches_pair_hybrid": {
              k: pair_launches[k]["ssd_scan"]
-             for k in ("serve_zamba2", "train_zamba2")}, **ssd},
+             for k in ("serve_zamba2", "train_zamba2")},
+         "launches_serve_sharded": {
+             k: v for k, v in seqshard_launches.items()
+             if get_arch(k).is_ssm}, **ssd},
         {"name": "ssd_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
          "replaces": None,
@@ -3514,7 +3674,19 @@ def main() -> int:
          **ssd_bwd}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
+    _stop_helpers()
     return 0
+
+
+def _stop_helpers() -> None:
+    """Stop the helper processes ``multiprocessing`` started for the run
+    (the forkserver the SPMD worlds fork from, the resource tracker),
+    which would otherwise end only after this process."""
+    from multiprocessing import forkserver, resource_tracker
+    for helper in (forkserver._forkserver, resource_tracker._resource_tracker):
+        stop = getattr(helper, "_stop", None)
+        if stop is not None:
+            stop()
 
 
 if __name__ == "__main__":

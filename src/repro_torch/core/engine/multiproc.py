@@ -788,12 +788,14 @@ class _Worker:
         """Timed single-layer pass at microbatch ``m`` — the Sec. 3.1
         profile measurement, run live inside this rank's process — after
         running it for at least ``warmup_s`` seconds (a device and a host
-        left idle by another process's turn come back to speed)."""
+        left idle by another process's turn come back to speed); on the
+        card each pass is timed queued, the device's work alone
+        (``profiler._best_seconds``)."""
         if phase not in ("fwd", "bwd"):
             raise ValueError(f"unknown phase {phase!r}")
         fn = self._probe_fn(phase, m)
         best = profiler._best_seconds(fn, self.device, max(repeats, 1),
-                                      warmup_s)
+                                      warmup_s, queued=True)
         if self.slowdown > 1.0:
             time.sleep((self.slowdown - 1.0) * best * max(repeats, 1))
         return best * self.slowdown
@@ -1399,7 +1401,8 @@ class ProcessEngine(TrainEngine):
     def probe(self, rank: int, m: int, phase: str,
               repeats: int = 2, warmup_s: float = 0.0) -> float:
         """Live single-layer latency measurement on one rank process,
-        after ``warmup_s`` seconds of the same pass."""
+        after ``warmup_s`` seconds of the same pass; on the card the
+        device's work alone (:meth:`_Worker.probe`)."""
         if not 0 <= rank < self.n:
             raise ValueError(f"rank {rank} out of range for n={self.n}")
         meta, _ = self.substrate.request(
@@ -1491,10 +1494,12 @@ class ProcessEngine(TrainEngine):
 #: A :class:`WallClockOracle` probe is the best of at least
 #: SHARED_PROBE_REPEATS timed passes after SHARED_PROBE_WARMUP_S seconds of
 #: the same pass, and the oracle takes SHARED_PROBE_TURNS turns over the
-#: ranks at one ``(m, phase)``: on the device the fleet's workers share,
-#: one probe call reads anywhere from its rank's best to twice it, for
-#: tens of milliseconds at a time (with four turns, two ranks' bests at
-#: m 1 still differed by up to 35% on one H100).
+#: ranks at one ``(m, phase)``.  On the card each pass is timed queued
+#: (the device's work alone, ``profiler._best_seconds``): a layer at m 1
+#: is bound by its launches, and CUDA events around a pass read the host
+#: the fleet's processes share: two to three times the pass's device time
+#: (two ranks' bests at m 1 differed by up to 35% on one H100 with events;
+#: by at most 0.5% queued).
 SHARED_PROBE_REPEATS = 5
 SHARED_PROBE_WARMUP_S = 0.02
 SHARED_PROBE_TURNS = 8
@@ -1528,17 +1533,13 @@ class WallClockOracle:
     engine's passive samples (``last_step_samples``) stay telemetry for
     readers of the engine only.  Served to the control loop, a passive
     sample (one timed pass taken right after the step, on a device the
-    other workers have just used) beside another rank's
-    best-of-2 probe made the refit compare two kinds of
-    measurement: on one H100 a rank three times slower was refit at
-    1.6-1.9x the other.  Probes alone, rank by rank as the control loop
-    asks, read the rank probed after the straggler's whole sweep up to
-    1.6x slower than the straggler for the same work, warm-up or not, so
-    the refit saw 1.9-2.2x: a layer at small ``m`` is bound by its
-    launches, and on the host and card the workers share one probe call
-    reads anywhere from its rank's best to twice it, for tens of
-    milliseconds at a time, so each rank's best is taken over several
-    calls interleaved with the other ranks'.
+    other workers have just used) beside another rank's probe made the
+    refit compare two kinds of measurement: on one H100 a rank three
+    times slower was refit at 1.6-1.9x the other.  And on the card a
+    probe times the device's work alone (``queued``): a layer at small
+    ``m`` is bound by its launches, and CUDA events around it read the
+    host the workers share, so two unslowed ranks read up to 35% apart
+    and the refit of a rank three times slower saw 2.2x.
     """
 
     def __init__(self):

@@ -104,6 +104,16 @@ class UnitPlanner:
     def n_stages(self) -> int:
         return len(self.stages)
 
+    def group(self, name: str) -> UnitGroup:
+        """The unit group named ``name``; raises ``KeyError``."""
+        for g in self.groups:
+            if g.name == name:
+                return g
+        raise KeyError(name)
+
+    def has_group(self, name: str) -> bool:
+        return any(g.name == name for g in self.groups)
+
     def split(self, params: Dict[str, Any]) -> Dict[str, Any]:
         return split_params(self.cfg, params)
 

@@ -117,6 +117,11 @@ class HeteroTrainer:
         """Reassemble the full params tree from all ranks' shards."""
         return self.substrate.allgather_params(shards)
 
+    def software_reduce_scatter(self, grads_full: Any
+                                ) -> List[Dict[str, torch.Tensor]]:
+        """Full-grad tree → per-rank shard slices (already summed)."""
+        return self.substrate.reduce_scatter_grads(grads_full)
+
     # --- per-rank work --------------------------------------------------------
     def rank_batches(self, big: np.ndarray) -> List[Optional[Dict]]:
         """Slice a (B, seq+1) global sample block by the plan's b_i —

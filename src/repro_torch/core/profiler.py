@@ -85,12 +85,55 @@ def layer_call(cfg: ArchConfig, spec, bp, shared, x: torch.Tensor,
     return fn
 
 
+#: GPU clock cycles of the first device-side wait a queued timing puts
+#: before a timed call (about 5 ms at the H100's clock), doubled while
+#: the host is still enqueuing the call when the wait ends, up to
+#: QUEUE_MAX_CYCLES
+QUEUE_CYCLES = 10_000_000
+QUEUE_MAX_CYCLES = 2_000_000_000
+
+
+def _queued_call_seconds(fn: Callable[[], object], cycles: int
+                         ) -> Tuple[float, int]:
+    """(device seconds of one call of ``fn``, the wait's cycles it took):
+    a device-side wait (``torch.cuda._sleep``) holds the stream while the
+    host enqueues the call, so the CUDA events around it time the device's
+    work alone and not the host's launches.  Where the wait ended before
+    the host had enqueued the whole call, the call runs again behind a
+    wait twice as long; a call that synchronises with the host cannot be
+    timed so, and raises."""
+    while True:
+        torch.cuda._sleep(cycles)
+        waited = torch.cuda.Event()
+        waited.record()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        caught_up = waited.query()
+        end.synchronize()
+        if not caught_up:
+            return start.elapsed_time(end) / 1e3, cycles
+        if cycles >= QUEUE_MAX_CYCLES:
+            raise RuntimeError(
+                f"a call still not enqueued after a wait of {cycles} GPU "
+                "cycles: it synchronises with the host and cannot be "
+                "timed queued")
+        cycles *= 2
+
+
 def _best_seconds(fn: Callable[[], object], device: torch.device,
-                  repeats: int, warmup_s: float = 0.0) -> float:
+                  repeats: int, warmup_s: float = 0.0,
+                  queued: bool = False) -> float:
     """Minimum over ``repeats`` timed calls of ``fn``, after one warm-up
     call and further ones for at least ``warmup_s`` seconds (a device
     and a host left idle come back to speed): CUDA events on the card,
-    the host clock on the CPU."""
+    the host clock on the CPU.  ``queued`` times on the card the
+    device's work alone, each call enqueued behind a device-side wait
+    (:func:`_queued_call_seconds`): a pass at small m is bound by its
+    launches, and on a host other processes load the events around it
+    read the host's speed."""
     fn()
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < warmup_s:
@@ -98,8 +141,12 @@ def _best_seconds(fn: Callable[[], object], device: torch.device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     best = float("inf")
+    cycles = QUEUE_CYCLES
     for _ in range(repeats):
-        if device.type == "cuda":
+        if device.type == "cuda" and queued:
+            t, cycles = _queued_call_seconds(fn, cycles)
+            best = min(best, t)
+        elif device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -118,16 +165,18 @@ def profile_layer_forward(cfg: ArchConfig, seq: int,
                           ms: Sequence[int] = PROFILE_MS,
                           repeats: int = 3,
                           device: torch.device | str = "cuda",
-                          warmup_s: float = 0.0
+                          warmup_s: float = 0.0, queued: bool = False
                           ) -> List[Tuple[int, float]]:
-    """Measured (m, seconds) samples for one block's forward pass."""
+    """Measured (m, seconds) samples for one block's forward pass
+    (``queued``: :func:`_best_seconds`'s)."""
     device = M.resolve_device(device)
     spec, bp, shared = _layer(cfg, device)
     out = []
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
         fn = layer_call(cfg, spec, bp, shared, x, pos)
-        out.append((m, _best_seconds(fn, device, repeats, warmup_s)))
+        out.append((m, _best_seconds(fn, device, repeats, warmup_s,
+                                      queued)))
     return out
 
 
@@ -135,7 +184,7 @@ def profile_layer_backward(cfg: ArchConfig, seq: int,
                            ms: Sequence[int] = PROFILE_MS,
                            repeats: int = 3,
                            device: torch.device | str = "cuda",
-                           warmup_s: float = 0.0
+                           warmup_s: float = 0.0, queued: bool = False
                            ) -> List[Tuple[int, float]]:
     """Measured (m, seconds) samples for one block's forward and backward:
     the grads of ``sum(y*y)`` with respect to the block's params (a
@@ -150,7 +199,8 @@ def profile_layer_backward(cfg: ArchConfig, seq: int,
     for m in ms:
         x, pos = _input(cfg, m, seq, device)
         fn = layer_call(cfg, spec, bp, shared, x, pos, leaves)
-        out.append((m, _best_seconds(fn, device, repeats, warmup_s)))
+        out.append((m, _best_seconds(fn, device, repeats, warmup_s,
+                                      queued)))
     return out
 
 
@@ -189,7 +239,7 @@ def wallclock_cluster_model(cluster, cfg: ArchConfig, seq: int,
                             ms: Sequence[int] = PROFILE_MS,
                             repeats: int = 2,
                             device: torch.device | str = "cuda",
-                            warmup_s: float = 0.0
+                            warmup_s: float = 0.0, queued: bool = False
                             ) -> ClusterCostModel:
     """Cost model in *this device's* wall-clock units, no spec rescaling:
     every rank gets the same measured fwd/bwd
@@ -198,11 +248,13 @@ def wallclock_cluster_model(cluster, cfg: ArchConfig, seq: int,
     rank fleet whose ranks share one kind of silicon (the multiproc
     substrate, :mod:`repro_torch.core.engine.multiproc`).  Each sample
     is the best of ``repeats`` calls after ``warmup_s`` seconds of the
-    same call (:func:`_best_seconds`)."""
+    same call, ``queued`` or not (:func:`_best_seconds`)."""
     fwd = profile_layer_forward(cfg, seq, ms=ms, repeats=repeats,
-                                device=device, warmup_s=warmup_s)
+                                device=device, warmup_s=warmup_s,
+                                queued=queued)
     bwd = profile_layer_backward(cfg, seq, ms=ms, repeats=repeats,
-                                 device=device, warmup_s=warmup_s)
+                                 device=device, warmup_s=warmup_s,
+                                 queued=queued)
     t_fwd = LatencyModel([m for m, _ in fwd], [t for _, t in fwd])
     t_bwd = LatencyModel([m for m, _ in bwd], [t for _, t in bwd])
     mem = analytic_memory(cfg, seq)

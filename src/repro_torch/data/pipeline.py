@@ -19,7 +19,7 @@ non-trivial (a learnable bigram structure), deterministic in (seed, step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -112,3 +112,17 @@ def make_plan_batch(stream: SyntheticStream, step: int, plan: Plan,
     return plan_grid_from_block(plan, stream.sample(step,
                                                     plan.global_batch))
 
+
+def iterate(stream: SyntheticStream, plan: Optional[Plan] = None,
+            batch: Optional[int] = None, start_step: int = 0,
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless batches from ``start_step`` on: the plan's padded grid
+    (:func:`make_plan_batch`) where a ``plan`` is given, else a
+    homogeneous batch of ``batch`` rows."""
+    step = start_step
+    while True:
+        if plan is not None:
+            yield make_plan_batch(stream, step, plan)
+        else:
+            yield make_homogeneous_batch(stream, step, batch)
+        step += 1

@@ -35,6 +35,8 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 LAUNCHES = 0
 #: The same launches by kernel variant.
 VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
+#: The same launches by their (query heads, KV heads).
+HEAD_LAUNCHES: dict = {}
 #: Launches of the backward kernels (both dtypes), apart from the forward
 #: ones above.
 BWD_LAUNCHES = {"flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
@@ -182,6 +184,7 @@ def _forward(q, k, v, causal, window, softcap, with_lse):
                            f"error {rc}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[VARIANTS[q.dtype]] += 1
+    HEAD_LAUNCHES[h, kvh] = HEAD_LAUNCHES.get((h, kvh), 0) + 1
     return out, lse
 
 

@@ -37,6 +37,8 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
 LAUNCHES = 0
 #: The same launches by kernel variant.
 VARIANT_LAUNCHES = {"fp32-fma": 0, "bf16-mma": 0}
+#: The same launches by their head count H.
+HEAD_LAUNCHES: dict = {}
 #: Launches of the backward kernel, apart from the forward ones above.
 BWD_LAUNCHES = 0
 #: The backward's launches by kernel variant.
@@ -194,6 +196,7 @@ def _forward(x, dt, a, b, c, h0):
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[VARIANTS[x.dtype]] += 1
+    HEAD_LAUNCHES[h] = HEAD_LAUNCHES.get(h, 0) + 1
     return y, h_final
 
 

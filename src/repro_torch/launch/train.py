@@ -196,7 +196,7 @@ def solve_plan(args, cfg: Optional[ArchConfig] = None
         cm = wallclock_cluster_model(
             cluster, cfg, args.seq, device=args.device,
             repeats=MP.SHARED_PROBE_REPEATS * MP.SHARED_PROBE_TURNS,
-            warmup_s=MP.SHARED_PROBE_WARMUP_S)
+            warmup_s=MP.SHARED_PROBE_WARMUP_S, queued=True)
     else:
         cm = analytic_cluster_model(cluster,
                                     build_model_stats(cfg, args.seq))

@@ -91,3 +91,21 @@ def fill_kv_from_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
         cache["v"][:, :take] = v[:, src]
         cache["pos"][:, :take] = positions[:, src]
     return cache
+
+
+def fill_kv_shard(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, window: int, total: int,
+                  start: int) -> dict:
+    """Fill a rank's empty shard of a layer cache — global slots [start,
+    start + S_loc) of ``total`` — from prefill-fresh (k, v) of every
+    position, in place: the whole layer cache is filled as
+    :func:`fill_kv_from_prefill` fills it, for the duration of the call,
+    and the shard's slots are copied out of it."""
+    b, _, kvh, hd = k.shape
+    whole = init_kv(1, b, total, kvh, hd, k.dtype, k.device)
+    whole = {n: t[0] for n, t in whole.items()}
+    fill_kv_from_prefill(whole, k, v, positions, window=window)
+    s_loc = cache["k"].shape[1]
+    for name in ("k", "v", "pos"):
+        cache[name].copy_(whole[name].narrow(1, start, s_loc))
+    return cache

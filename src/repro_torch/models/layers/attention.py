@@ -18,6 +18,11 @@ decode, DESIGN.md §5), each rank attends over its slots and
 :func:`merge_decode_partials` merges the partials across a
 :class:`SeqShardAxis` with the log-sum-exp trick.
 
+Tensor-parallel serving (the reference's GSPMD ``build_prefill`` /
+``build_decode``): with a :class:`TensorAxis` each rank holds its shard of
+the weights as ``launch.serving.param_shardings`` cuts them and issues the
+collectives GSPMD would insert (:func:`attention_apply` says which).
+
 Layout convention: activations ``(B, S, D)``, heads ``(B, S, H, hd)``,
 KV cache ``(B, S_max, KV, hd)``.
 """
@@ -25,7 +30,7 @@ KV cache ``(B, S_max, KV, hd)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -224,6 +229,91 @@ class SeqShardAxis:
     index: int
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorAxis:
+    """The ranks a layer's weights are split over: the reference's
+    ``model`` mesh axis, under which GSPMD partitions each leaf as
+    ``launch.serving.param_shardings`` says.  Their process ``group``,
+    this rank's ``comm`` (a :class:`~repro_torch.core.engine.world.Comm`),
+    its ``index`` in the group and the group's ``size``.  A layer computes
+    on its shards and calls :meth:`sum_partials` where each rank holds a
+    partial product of an output projection; ``drop_sums`` skips those
+    sums (each rank's logits as if the other shards were dropped: the
+    scale a fault in them would move the logits by)."""
+
+    group: Any
+    comm: Any
+    index: int
+    size: int
+    drop_sums: bool = False
+
+    def splits(self, n: int) -> bool:
+        """Whether a dim of ``n`` splits over the axis, by the serving
+        rules' test (at least one element a rank, evenly)."""
+        return n >= self.size and n % self.size == 0
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a dim of ``n`` split over the axis."""
+        size = n // self.size
+        return slice(self.index * size, (self.index + 1) * size)
+
+    def gathers(self, items: Sequence[Tuple[torch.Tensor, int]]
+                ) -> List[torch.Tensor]:
+        """Each ``(t, dim)``'s ``t`` of every rank concatenated along
+        ``dim`` in group order: one all-gather for the tensors of each
+        dtype, packed flat."""
+        out: List[Optional[torch.Tensor]] = [None] * len(items)
+        by_dtype: dict = {}
+        for i, (t, _) in enumerate(items):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([items[i][0].reshape(-1) for i in idx]) \
+                if len(idx) > 1 else items[idx[0]][0].reshape(-1)
+            parts = flat.new_empty((self.size, flat.numel()))
+            self.comm.all_gather(parts, flat.contiguous(), self.group)
+            off = 0
+            for i in idx:
+                t, dim = items[i]
+                part = parts[:, off:off + t.numel()].reshape(
+                    (self.size,) + tuple(t.shape))
+                out[i] = torch.cat(part.unbind(0), dim=dim)
+                off += t.numel()
+        return out
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in group order."""
+        return self.gathers([(t, dim)])[0]
+
+    def wholes(self, items: Sequence[Tuple[torch.Tensor, int, int]]
+               ) -> List[torch.Tensor]:
+        """Each ``(t, dim, n)``'s ``t`` whole along ``dim`` (of ``n``):
+        gathered (:meth:`gathers`, packed) where this rank holds a block
+        of it."""
+        split = [i for i, (t, dim, n) in enumerate(items) if t.shape[dim] < n]
+        out = [t for t, _, _ in items]
+        for i, t in zip(split, self.gathers([items[i][:2] for i in split])):
+            out[i] = t
+        return out
+
+    def whole(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """``t`` whole along ``dim`` (of ``n``): gathered where this rank
+        holds a block of it."""
+        return self.wholes([(t, dim, n)])[0]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t``, in ``t``'s dtype (a new
+        tensor)."""
+        buf = t.clone(memory_format=torch.contiguous_format)
+        self.comm.all_reduce(buf, self.group)
+        return buf
+
+    def sum_partials(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`sum` of each rank's partial product of an output
+        projection (``wo``, ``w_down``, the experts, ``out_proj``); the
+        rank's own partial under ``drop_sums``."""
+        return t if self.drop_sums else self.sum(t)
+
+
 def merge_decode_partials(wv: torch.Tensor, m: torch.Tensor,
                           l: torch.Tensor,
                           axis: Optional[SeqShardAxis] = None
@@ -246,31 +336,106 @@ def merge_decode_partials(wv: torch.Tensor, m: torch.Tensor,
     return out.transpose(1, 2)   # (B, 1, H, hd)
 
 
+def tp_query(params: dict, spec: AttnSpec, tp: TensorAxis):
+    """This rank's ``(wq, q0)`` under the serving rules: ``wq`` over its
+    query heads from ``q0`` where the rule splits heads, else every head
+    from 0 (gathered where it splits ``head_dim``)."""
+    wq = params["wq"]
+    if wq.shape[-2] < spec.n_heads:
+        return wq, tp.index * wq.shape[-2]
+    return tp.whole(wq, -1, spec.head_dim), 0
+
+
+def tp_kv(params: dict, spec: AttnSpec, tp: TensorAxis,
+          whole: bool = False):
+    """This rank's ``(wk, wv, kv0)``: over its KV heads from ``kv0`` where
+    the rule splits heads, unless ``whole``; else every KV head from 0,
+    gathered where the rule splits heads or ``head_dim`` (fewer KV heads
+    than ranks).  Query head ``h`` pairs with KV head ``h // rep`` of the
+    whole layer, as unsharded."""
+    wk, wv = params["wk"], params["wv"]
+    if wk.shape[-2] < spec.n_kv_heads:
+        if not whole:
+            return wk, wv, tp.index * wk.shape[-2]
+        wk, wv = tp.gathers([(wk, -2), (wv, -2)])
+        return wk, wv, 0
+    wk, wv = tp.wholes([(wk, -1, spec.head_dim), (wv, -1, spec.head_dim)])
+    return wk, wv, 0
+
+
+def tp_output(out: torch.Tensor, wo: torch.Tensor, spec: AttnSpec,
+              tp: TensorAxis, d_model: int) -> torch.Tensor:
+    """``out`` (B, S, heads, hd) — the rank's query heads, or every head —
+    into the rank's ``wo`` shard: where the rule splits ``wo`` by heads,
+    the rank's heads of ``out`` into its rows, summed over the ranks; else
+    ``out`` holds every head, and a ``wo`` split by ``d_model`` gives the
+    rank's columns, gathered."""
+    dtype = out.dtype
+    wo = wo.to(dtype)
+    if wo.shape[-3] < spec.n_heads:
+        if out.shape[2] == spec.n_heads:
+            out = out[:, :, tp.block(spec.n_heads)]
+        return tp.sum_partials(torch.einsum("bshk,hkd->bsd", out, wo))
+    y = torch.einsum("bshk,hkd->bsd", out, wo)
+    return tp.whole(y, -1, d_model)
+
+
 def attention_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
-                    positions: torch.Tensor, return_kv: bool = False):
+                    positions: torch.Tensor, return_kv: bool = False,
+                    tp: Optional[TensorAxis] = None):
     """Self-attention over ``x`` (B, S, D) through the flash attention
     kernel, which assumes contiguous 0..S-1 positions (train/prefill); on
     the CPU past ``BLOCKWISE_THRESHOLD`` tokens through
     :func:`blockwise_attention`.  ``return_kv`` also returns the fresh
     (k, v) for cache fills.  (The JAX package's ``kv_override``
     cross-cache mode has no caller here yet.)
+
+    With ``tp`` the weights are this rank's shards (:func:`tp_query`,
+    :func:`tp_kv`): the kernel runs over the rank's query heads
+    and the KV heads they pair with, and the output goes through
+    :func:`tp_output` (a sum over the ranks, or a gather of ``d_model``).
+    The returned (k, v) hold every KV head: where the rule splits KV
+    heads, the layer gathers whichever moves fewer bytes, the K/V of its
+    tokens or ``wk``/``wv`` (more tokens than ``d_model``: a long
+    prefill), and projects every head itself.  Where the rule splits
+    ``head_dim`` the layer gathers ``wq``, ``wk``, ``wv`` for its
+    duration.
     """
     dtype = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    if tp is None:
+        wq, wk, wv, q0, kv0 = params["wq"], params["wk"], params["wv"], 0, 0
+    else:
+        many = return_kv and x.shape[0] * x.shape[1] > x.shape[-1]
+        (wq, q0), (wk, wv, kv0) = tp_query(params, spec, tp), \
+            tp_kv(params, spec, tp, whole=many)
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, wk.to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(dtype))
     if spec.use_rope:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
+    # the KV heads the query heads pair with
+    rep = spec.q_per_kv
+    lo = q0 // rep - kv0
+    hi = (q0 + q.shape[2] - 1) // rep + 1 - kv0
+    ka, va = k[:, :, lo:hi], v[:, :, lo:hi]
     if x.device.type == "cpu" and x.shape[1] > BLOCKWISE_THRESHOLD:
-        out = blockwise_attention(q, k, v, spec, positions, positions)
+        out = blockwise_attention(q, ka, va, dataclasses.replace(
+            spec, n_heads=q.shape[2], n_kv_heads=ka.shape[2]),
+            positions, positions)
     else:
         # kernel layout (B, H, S, D): transposed views, read through strides
         out = flash_ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
             causal=spec.causal, window=spec.window,
             softcap=spec.softcap).transpose(1, 2)
-    y = torch.einsum("bshk,hkd->bsd", out.to(dtype), params["wo"].to(dtype))
+    if tp is None:
+        y = torch.einsum("bshk,hkd->bsd", out.to(dtype),
+                         params["wo"].to(dtype))
+    else:
+        y = tp_output(out.to(dtype), params["wo"], spec, tp, x.shape[-1])
+        if k.shape[2] < spec.n_kv_heads:
+            k, v = tp.gathers([(k, 2), (v, 2)])
     if return_kv:
         return y, (k, v)
     return y

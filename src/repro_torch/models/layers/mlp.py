@@ -1,6 +1,9 @@
 """Feed-forward blocks: SwiGLU, GeGLU, and classic GELU MLP.
 
 Both GELUs are the tanh approximation, as in ``repro.models.layers.mlp``.
+Under tensor-parallel serving (a ``TensorAxis``) ``w_gate``, ``w_up`` and
+``b_up`` are split by ``d_ff`` and ``w_down`` by rows: each rank's
+partial product, then one sum over the ranks; ``b_down`` is whole.
 """
 
 from __future__ import annotations
@@ -30,14 +33,23 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
     raise ValueError(f"unknown mlp kind {kind!r}")
 
 
-def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, kind: str, tp=None,
+              d_ff: int = 0) -> torch.Tensor:
+    """The block over ``x``; with ``tp`` (a ``TensorAxis``) ``params`` are
+    this rank's shards of a block of ``d_ff``, summed over the ranks where
+    the rule splits ``d_ff``."""
     dtype = x.dtype
+    split = tp is not None and params["w_down"].shape[-2] < d_ff
     if kind in ("swiglu", "geglu"):
         gate = x @ params["w_gate"].to(dtype)
         up = x @ params["w_up"].to(dtype)
         act = F.silu(gate) if kind == "swiglu" \
             else F.gelu(gate, approximate="tanh")
-        return (act * up) @ params["w_down"].to(dtype)
+        y = (act * up) @ params["w_down"].to(dtype)
+        return tp.sum_partials(y) if split else y
     h = x @ params["w_up"].to(dtype) + params["b_up"].to(dtype)
     h = F.gelu(h, approximate="tanh")
-    return h @ params["w_down"].to(dtype) + params["b_down"].to(dtype)
+    y = h @ params["w_down"].to(dtype)
+    if split:
+        y = tp.sum_partials(y)
+    return y + params["b_down"].to(dtype)

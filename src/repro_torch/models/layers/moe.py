@@ -19,6 +19,13 @@ of two dispatches, as in the JAX package:
   dispatch (16x for qwen3-moe-30b-a3b) and reads every expert's weights
   every step; it is the JAX package's form, kept for exactness.
 
+Under tensor-parallel serving (a ``TensorAxis``) the drop-free dispatch
+runs on each rank's experts (``w_gate``/``w_up``/``w_down`` split at dim
+-3; where the experts do not split, by ``d_ff``) over every token, the
+router whole, the combine weighted by the router's gates for those
+experts: each rank's partial sum, then one sum over the ranks.  Still
+exact, with no capacity and no host synchronise.
+
 Router load-balance loss per Switch Transformers: ``aux = E Σ_e f_e P_e``
 (fraction of tokens whose top-1 is ``e`` times the mean router prob).
 """
@@ -57,10 +64,13 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
               chunk_tokens: int = 4096,
               dropless: bool = False,
+              tp=None, d_ff: int = 0,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (y, aux_loss).
 
-    ``dropless=True`` selects the drop-free dispatch.  When ``S >
+    ``dropless=True`` selects the drop-free dispatch; ``tp`` (a
+    ``TensorAxis``, drop-free only) runs it on this rank's shards of
+    experts of ``d_ff`` (:func:`_moe_dropless`).  When ``S >
     chunk_tokens`` and divides by it, each sequence's chunk of
     ``chunk_tokens`` is its own dispatch (its own capacity), and aux is
     the mean over chunks and sequences, as the JAX package's ``vmap`` over
@@ -73,7 +83,10 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     else:
         groups = x.reshape(1, b * s, d)
     if dropless:
-        y, aux = _moe_dropless(params, groups, top_k=top_k)
+        y, aux = _moe_dropless(params, groups, top_k=top_k, tp=tp,
+                               d_ff=d_ff)
+    elif tp is not None:
+        raise ValueError("tensor-parallel MoE runs the drop-free dispatch")
     else:
         y, aux = _moe_dense(params, groups, top_k=top_k,
                             capacity_factor=capacity_factor)
@@ -109,19 +122,48 @@ def _experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(F.silu(gate) * up, params["w_down"].to(dtype))
 
 
-def _moe_dropless(params: dict, x: torch.Tensor, *, top_k: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+_ROUTE_LOGS: List[list] = []    # the lists of open recording_routes() blocks
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Yields a list that gets the expert ids (G, T, K), sorted along K,
+    of each drop-free dispatch run while the block is open: the experts
+    each token was routed to, in the order the layers ran."""
+    log: list = []
+    _ROUTE_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _ROUTE_LOGS.remove(log)
+
+
+def _moe_dropless(params: dict, x: torch.Tensor, *, top_k: int, tp=None,
+                  d_ff: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-free dispatch of each group of x (G, T, D): every expert over
     every token, the combine masked by the gates.  Returns y (G, T, D) and
-    each group's aux (G,)."""
+    each group's aux (G,).  With ``tp`` the experts are this rank's shards:
+    its block of the experts (every expert, of its block of ``d_ff``,
+    where the experts do not split), its partial combine summed over the
+    ranks."""
     g, t, d = x.shape
     e = params["router"].shape[1]
     probs, gate_vals, expert_idx = _route(params, x, top_k)
     comb = torch.zeros((g, t, e), dtype=torch.float32, device=x.device
                        ).scatter_(-1, expert_idx, gate_vals)    # (G, T, E)
-    xt = x.reshape(1, g * t, d).expand(e, g * t, d)
-    out = _experts(params, xt)                                  # (E, GT, D)
-    y = torch.einsum("te,etd->td", comb.reshape(g * t, e).to(x.dtype), out)
+    for log in _ROUTE_LOGS:
+        log.append(expert_idx.sort(dim=-1).values)
+    comb = comb.reshape(g * t, e)
+    e_loc = params["w_gate"].shape[0]
+    split = tp is not None and (e_loc < e or
+                                params["w_gate"].shape[-1] < d_ff)
+    if tp is not None and e_loc < e:
+        comb = comb[:, tp.block(e)]
+    xt = x.reshape(1, g * t, d).expand(e_loc, g * t, d)
+    out = _experts(params, xt)                              # (E_loc, GT, D)
+    y = torch.einsum("te,etd->td", comb.to(x.dtype), out)
+    if split:
+        y = tp.sum_partials(y)
     return y.reshape(g, t, d), _aux_loss(probs, expert_idx)
 
 

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, AttnKind
 from repro_torch.models import blocks as B
 from repro_torch.models import kvcache as KV
-from repro_torch.models.layers.attention import SeqShardAxis
+from repro_torch.models.layers.attention import SeqShardAxis, TensorAxis
 from repro_torch.models.layers.init_utils import dense_init, embed_init
 
 #: Leaves the JAX package keeps in fp32 and uses in fp32 (norm scales, the
@@ -226,12 +226,33 @@ def param_count(params: Any) -> int:
 # Embedding / head
 # ---------------------------------------------------------------------------
 
+def _embed_lookup(cfg: ArchConfig, embed: torch.Tensor,
+                  tokens: torch.Tensor, tp: Optional[TensorAxis]
+                  ) -> torch.Tensor:
+    """``embed[tokens]`` of the whole table.  With ``tp`` the table is the
+    rank's shard: by vocab rows, each rank looks up the ids in its range,
+    zero elsewhere, and the ranks' rows are summed; by ``d_model``, the
+    rank's columns are gathered."""
+    if tp is None or embed.shape == (cfg.vocab_size, cfg.d_model):
+        return embed[tokens]
+    if embed.shape[0] < cfg.vocab_size:
+        lo = tp.index * embed.shape[0]
+        ids = tokens - lo
+        mine = (ids >= 0) & (ids < embed.shape[0])
+        x = embed[ids.clamp(0, embed.shape[0] - 1)] * mine[..., None]
+        return tp.sum(x)
+    return tp.gather(embed[tokens], -1)
+
+
 def embed_tokens(cfg: ArchConfig, params: Dict[str, Any],
                  tokens: torch.Tensor, positions: torch.Tensor,
-                 frontend_embed: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 frontend_embed: torch.Tensor | None = None,
+                 tp: Optional[TensorAxis] = None) -> torch.Tensor:
+    """Token embeddings (scaled, with the frontend's and the learned
+    positions' where the model has them); ``tp``: ``params`` are this
+    rank's tensor-parallel shards (:func:`_embed_lookup`)."""
     dtype = compute_dtype(cfg)
-    x = params["embed"][tokens].to(dtype)
+    x = _embed_lookup(cfg, params["embed"], tokens, tp).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype,
                              device=x.device)
@@ -246,11 +267,26 @@ def embed_tokens(cfg: ArchConfig, params: Dict[str, Any],
 
 
 def head_logits(cfg: ArchConfig, params: Dict[str, Any],
-                h: torch.Tensor) -> torch.Tensor:
-    """fp32 logits of the final-normed hidden states."""
+                h: torch.Tensor, tp: Optional[TensorAxis] = None
+                ) -> torch.Tensor:
+    """fp32 logits of the final-normed hidden states.  With ``tp`` the
+    head (or the tied embedding) is this rank's shard: split by vocab, its
+    logits are gathered along V; split by ``d_model``, the rank's rows of
+    ``h`` give a partial product, summed over the ranks.  Every rank
+    returns the whole logits, as the reference's replicated ``P()``."""
     h = B.norm_apply(cfg, params["final_norm"], h)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    z = (h @ w.to(h.dtype)).float()
+    if tp is not None and w.shape[1] < cfg.vocab_size:
+        return _softcap_logits(cfg, tp.gather(
+            (h @ w.to(h.dtype)).float(), -1))
+    if tp is not None and w.shape[0] < cfg.d_model:
+        part = (h[..., tp.block(cfg.d_model)] @ w.to(h.dtype)).float()
+        return _softcap_logits(cfg, tp.sum(part))
+    return _softcap_logits(cfg, (h @ w.to(h.dtype)).float())
+
+
+def _softcap_logits(cfg: ArchConfig, z: torch.Tensor) -> torch.Tensor:
+    """The final softcap, where the model has one."""
     if cfg.final_softcap > 0:
         z = cfg.final_softcap * torch.tanh(z / cfg.final_softcap)
     return z
@@ -461,8 +497,21 @@ def _sub_blocks(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict]
                 raise ValueError(spec.kind)
 
 
+def _shard_start(axis: Optional[SeqShardAxis], s_loc: int, total: int
+                 ) -> int:
+    """The first global slot of a rank's shard of ``s_loc`` slots of a
+    cache group of ``total``: its index in the sequence group times its
+    length where the group is split, else 0 (whole on every rank)."""
+    return axis.index * s_loc if axis is not None and s_loc < total else 0
+
+
 def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             max_len: int, frontend_embed: torch.Tensor | None = None,
+            tp: Optional[TensorAxis] = None,
+            seq_shard_axis: Optional[SeqShardAxis] = None,
+            caches: Optional[List[Dict]] = None,
+            trace: Optional[List[torch.Tensor]] = None,
+            feed: Optional[Sequence[torch.Tensor]] = None,
             ) -> Tuple[torch.Tensor, List[Dict]]:
     """Run the full prompt (B, S), build caches.  Returns (last-token
     logits (B, 1, V) fp32, caches).  A model with a frontend stub takes
@@ -470,30 +519,66 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     projected and added to the token embeddings.  On CUDA tensors,
     attention goes through the flash attention kernel and the SSM scan
     through the SSD scan kernel.  MoE layers take the drop-free dispatch,
-    here and in :func:`decode_step`."""
+    here and in :func:`decode_step`.
+
+    Tensor-parallel prefill (the reference's ``build_prefill``): with
+    ``tp`` the params are this rank's shards under the serving rules and
+    ``caches`` its empty cache shards (``launch.serving.rank_caches``);
+    each layer computes on its shards and issues the collectives of
+    :class:`TensorAxis`; each attention layer's K/V, split by heads,
+    move to the rank's slots of the sequence (every KV head gathered,
+    the slots of its index in ``seq_shard_axis`` kept: a cache group
+    whose shard is its whole length is whole on every rank), the SSM
+    state keeps the rank's heads and the conv state its channels.  The
+    logits come back whole on every rank (only the last position's are
+    computed).
+
+    ``trace`` gets the embedding's output and then each block's output
+    (B, S, D), in the order :func:`_sub_blocks` applies the blocks.  With
+    ``feed`` (another run's trace) block ``j`` takes ``feed[j]`` as its
+    input in place of the previous block's output and the head takes
+    ``feed[-1]``: each block is compared with the other run's on the
+    same input.
+    """
     bsz, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device)[None].expand(
         bsz, seq)
-    x = embed_tokens(cfg, params, tokens, positions, frontend_embed)
-    caches = init_cache(cfg, bsz, max_len, tokens.device)
+    x = embed_tokens(cfg, params, tokens, positions, frontend_embed, tp)
+    if trace is not None:
+        trace.append(x)
+    if caches is None:
+        caches = init_cache(cfg, bsz, max_len, tokens.device)
 
     def attend(bp, x, c, arg):
         local = arg[0]
         x, _, kv = B.dense_block_apply(bp, x, cfg, positions, local=local,
-                                       return_kv=True, dropless=True)
-        KV.fill_kv_from_prefill(c, kv[0], kv[1], positions,
-                                window=B.attn_spec(cfg, local).window)
+                                       return_kv=True, dropless=True, tp=tp)
+        window = B.attn_spec(cfg, local).window
+        total = _cache_len(cfg, local, max_len)
+        s_loc = c["k"].shape[-3]
+        if s_loc < total:
+            KV.fill_kv_shard(c, kv[0], kv[1], positions, window, total,
+                             _shard_start(seq_shard_axis, s_loc, total))
+        else:
+            KV.fill_kv_from_prefill(c, kv[0], kv[1], positions,
+                                    window=window)
         return x
 
     def scan(bp, x, c, j):
-        x, (h, conv) = B.ssm_block_apply(bp, x, cfg)
+        x, (h, conv) = B.ssm_block_apply(bp, x, cfg, tp=tp)
         c["h"][j].copy_(h)
         c["conv"][j].copy_(conv)
         return x
 
-    for kind, bp, c, arg in _sub_blocks(cfg, params, caches):
+    for j, (kind, bp, c, arg) in enumerate(_sub_blocks(cfg, params, caches)):
+        if feed is not None:
+            x = feed[j]
         x = (attend if kind == "attn" else scan)(bp, x, c, arg)
-    logits = head_logits(cfg, params, x[:, -1:])
+        if trace is not None:
+            trace.append(x)
+    if feed is not None:
+        x = feed[-1]
+    logits = head_logits(cfg, params, x[:, -1:], tp)
     return logits, caches
 
 
@@ -501,6 +586,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
                 tokens: torch.Tensor, positions: torch.Tensor,
                 seq_shard_axis: Optional[SeqShardAxis] = None,
                 cache_total: Optional[Dict[str, int]] = None,
+                tp: Optional[TensorAxis] = None,
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One serving step: ``tokens`` (B, 1) at absolute ``positions`` (B,).
 
@@ -515,10 +601,17 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
     local length, one start per group (the reference passes one
     ``shard_start`` to every group, which a pair's ring of ``window``
     slots beside its global cache cannot share); a group whose local
-    length is its global one is whole on every rank and starts at 0.  SSM
-    state is replicated: every rank steps it alike.
+    length is its global one is whole on every rank and starts at 0.
+    Without ``tp`` the SSM state is whole: every rank steps it alike.
+
+    Tensor-parallel decode (the reference's ``build_decode``): with
+    ``tp`` the params and the caches are this rank's shards, as in
+    :func:`prefill`; the new token's K/V and the query's heads are
+    gathered (one token wide), every head attends over the rank's slots
+    and merges across ``seq_shard_axis``, and the SSM steps the rank's
+    heads.
     """
-    x = embed_tokens(cfg, params, tokens, positions[:, None])
+    x = embed_tokens(cfg, params, tokens, positions[:, None], tp=tp)
     totals = cache_total or {}
 
     def attend(bp, x, c, arg):
@@ -526,29 +619,33 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], caches: List[Dict],
         # each layer cache's own length: the ring's for a window
         s_loc = c["k"].shape[-3]
         total = totals.get(group, s_loc)
-        start = seq_shard_axis.index * s_loc \
-            if seq_shard_axis is not None and s_loc < total else 0
-        k_new, v_new = B.decode_project_kv(bp, x, cfg, positions,
-                                           local=local)
+        start = _shard_start(seq_shard_axis, s_loc, total)
+        if tp is None:
+            q = None
+            k_new, v_new = B.decode_project_kv(bp, x, cfg, positions,
+                                               local=local)
+        else:
+            q, k_new, v_new = B.decode_project_qkv(bp, x, cfg, positions,
+                                                   local, tp)
         KV.write_kv(c["k"], c["v"], c["pos"], k_new, v_new, positions,
                     cache_total=total, shard_start=start)
         x, _, _ = B.dense_block_apply(bp, x, cfg, positions, local=local,
                                       kv_cache=(c["k"], c["v"], c["pos"]),
                                       seq_shard_axis=seq_shard_axis,
-                                      dropless=True)
+                                      dropless=True, tp=tp, q=q)
         return x
 
     def step(bp, x, c, j):
         x, (h, conv) = B.ssm_block_apply(bp, x, cfg,
                                          state=(c["h"][j], c["conv"][j]),
-                                         decode=True)
+                                         decode=True, tp=tp)
         c["h"][j].copy_(h)
         c["conv"][j].copy_(conv)
         return x
 
     for kind, bp, c, arg in _sub_blocks(cfg, params, caches):
         x = (attend if kind == "attn" else step)(bp, x, c, arg)
-    logits = head_logits(cfg, params, x)
+    logits = head_logits(cfg, params, x, tp)
     return logits, caches
 
 

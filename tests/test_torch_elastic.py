@@ -501,6 +501,89 @@ def test_best_seconds_warms_up_for_warmup_s():
     assert len(calls) - before == 4
 
 
+def test_fleet_probes_time_the_device_alone(monkeypatch):
+    """Fault 8: on one card two unslowed workers' probes at m 1 read up to
+    35% apart (the refit of a 3x straggler 2.2x against the 2x gate): a
+    layer at m 1 is bound by its launches, and CUDA events around a pass
+    read the host the fleet's processes share.  The cause is the card's
+    launch queue, which the CPU does not have; what is checked here is
+    that every measurement the oracle and the fleet's first plan rest on
+    asks for queued timing (the device's work alone), and the queued
+    timer's wait: doubled until the host has enqueued the whole call
+    before it ends, refused for a call that waits on the host."""
+    from repro_torch.core import profiler
+    from repro_torch.core.engine import multiproc as MP
+    from repro_torch.launch import train as launch
+
+    sent = []
+
+    class _Sub:
+        def request(self, rank, tag, meta):
+            sent.append((rank, tag, meta))
+            return {"seconds": 1e-3}, {}
+
+    class _Engine:
+        n, substrate = 2, _Sub()
+
+    MP.ProcessEngine.probe(_Engine(), 1, 4, "fwd", repeats=5,
+                           warmup_s=0.02)
+    assert sent[-1] == (1, "probe", {"m": 4, "phase": "fwd", "repeats": 5,
+                                     "warmup_s": 0.02})
+    timed = []
+    monkeypatch.setattr(profiler, "_best_seconds",
+                        lambda fn, dev, repeats, warmup_s, queued:
+                        timed.append(queued) or 1e-3)
+
+    class _Worker:
+        slowdown, device = 1.0, torch.device("cpu")
+
+        def _probe_fn(self, phase, m):
+            return lambda: None
+    MP._Worker.probe(_Worker(), 2, "bwd", 5, 0.02)
+    assert timed == [True]
+    seen = {}
+    monkeypatch.setattr(profiler, "wallclock_cluster_model",
+                        lambda *a, **kw: seen.update(kw) or 1 / 0)
+    args = launch.parser().parse_args([
+        "--arch", "tiny-llama", "--reduced", "--seq", "16", "--batch", "8",
+        "--cluster", "h100", "--substrate", "multiproc", "--nprocs", "2",
+        "--device", "cpu"])
+    with pytest.raises(ZeroDivisionError):
+        launch.solve_plan(args)
+    assert seen["queued"] is True
+
+    # the queued timer on a stand-in for the card's stream: the host's
+    # enqueue of the call outlasts the first two waits
+    waits, state = [], {"left": 2}
+
+    class _Event:
+        def __init__(self, enable_timing=False):
+            self.timing = enable_timing
+
+        def record(self):
+            pass
+
+        def query(self):
+            state["left"] -= 1
+            return state["left"] >= 0
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 0.25
+
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", waits.append)
+    seconds, cycles = profiler._queued_call_seconds(lambda: None, 1000)
+    assert (seconds, cycles) == (0.25e-3, 4000)
+    assert waits == [1000, 2000, 4000]
+    state["left"] = 10 ** 9
+    with pytest.raises(RuntimeError, match="synchronises with the host"):
+        profiler._queued_call_seconds(lambda: None,
+                                      profiler.QUEUE_MAX_CYCLES // 2)
+
+
 def _flat_cm(cluster, cfg, seq, slow=None):
     """A cost model whose every rank is launch-bound as gpt-1.3b's layer
     reads on one H100 (~2.4 ms forward, ~6 ms forward and backward at m
